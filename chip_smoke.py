@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, car.fhd inference (points -> detections)
-through ``InferenceContext`` at the published width of
-``configs/car.fhd.config``, with random weights from seed 0. Phases, each
-printed as it runs:
+Drives the port's two main paths at the published width of
+``configs/car.fhd.config``, with random weights from seed 0: car.fhd
+inference (points -> detections) through ``InferenceContext``, and
+car.fhd training steps at the train reader's batch 8 through
+``train.state.make_train_step``. Phases, each printed as it runs:
 
   1. the card's name and power limit (nvidia-smi) and the nvcc build of
-     the three kernels K1 (sparse conv), K3 (rotated IoU), K4 (greedy NMS);
+     the four kernels K1 (sparse conv), K2 (its weight gradient), K3
+     (rotated IoU), K4 (greedy NMS);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it (K1 on the rulebooks of a
      ``make_kitti_scene`` frame, K3 at [1000, 5] x [1000, 5], K4 at
@@ -20,32 +22,59 @@ printed as it runs:
      versions) -> preds agree, detections agree, NMS fed the same preds
      on both devices agrees, and the CPU's NMS candidates run through
      K3 and K4 on the card keep exactly the CPU's boxes;
-  5. a per-stage breakdown of frame 0 on the card.
+  5. a per-stage breakdown of frame 0 on the card;
+  6. the backward kernels at the training shapes, on the rulebooks of a
+     batch of 8 ``make_kitti_scene`` frames prepared by the train reader
+     (capacity 17000 voxels): for each of the 10 sparse convs K2 against
+     its plain version (max error, kernel and plain ms, two calls
+     bitwise equal), and K1's forward and input gradient through the
+     autograd Function against autograd through the plain version (max
+     error; kernel and plain ms of each);
+  7. the training slice: the full-width train step on the card, 10
+     steps on that batch (device ms, loss, lr, peak memory; losses
+     finite and falling; K1 and K2 launched), a per-part breakdown of
+     one step, and one step at batch 1 against the same step on the CPU
+     with the plain kernels (loss and every gradient).
 
-Then one JSON line with the kernels (K1's ``ms`` and ``plain_ms`` are
-the sums over the frame's 10 sparse convs; its ``launches`` count the
-4 frames of phase 3), and as the last line
+Then one JSON line with the kernels (K1's ``ms``, ``plain_ms`` and bound
+are sums over the inference frame's 10 sparse convs, K2's over the
+training batch's 10; K1's ``max_abs_err`` is its largest over phases 2
+and 6; ``launches`` count the main paths' runs, phases 3
+and 7, with ``launches_by_path`` splitting them), and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for the whole run (the
-slice is fp32). Any failed check raises, which exits non-zero; without a
-CUDA device the script exits 1 before printing any result.
+slices are fp32). Any failed check raises, which exits non-zero; without
+a CUDA device the script exits 1 before printing any result.
 """
 
+import copy
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from second_tpu_torch.builders.dataset_builder import build_prep_func
+from second_tpu_torch.builders.network_builder import build_network
+from second_tpu_torch.configs import load_pipeline_config
 from second_tpu_torch.core.inference import (
     InferenceContext,
     example_to_device,
 )
 from second_tpu_torch.csrc import build
-from second_tpu_torch.data import make_kitti_scene
-from second_tpu_torch.models.voxelnet import predict
-from second_tpu_torch.ops import cuda_iou, cuda_nms, cuda_sparse_conv
+from second_tpu_torch.data import make_kitti_scene, merge_second_batch
+from second_tpu_torch.models.voxelnet import compute_loss, init_weights, predict
+from second_tpu_torch.ops import (
+    cuda_iou,
+    cuda_nms,
+    cuda_sparse_conv,
+    cuda_sparse_conv_dw,
+)
+from second_tpu_torch.ops.sparse import SparseConvFunction, transpose_rulebook
+from second_tpu_torch.train import optimizer as opt_builder
+from second_tpu_torch.train.state import forward_loss, make_train_step
 
 CONFIG = "configs/car.fhd.config"
 N_FRAMES = 4
@@ -64,16 +93,90 @@ PREDS_REL_TOL = 1e-3
 # the CPU's order, K3 and K4 on the card must agree exactly (checked)
 NMS_MATCH_MIN = 0.9
 FRAME_MATCH_MIN = 0.9
+# K2 and K1's input gradient at batch 8: fp32 sums of up to ~10^5
+# products per element in another order, against the largest magnitude
+K2_TOL = 1e-4
+DGRAD_TOL = 1e-4
+# one train step at batch 1: the card's loss against the CPU's (fp32,
+# relative), and every gradient of the card against the same step in
+# float64 on the CPU (relative L2 error). An fp32 gradient of this
+# network is not good to 1e-3 of its largest magnitude on any device:
+# the CPU's own fp32 step is 1.2e-2 of it off its float64 step (batch
+# norm's backward cancels, and fp32 rounding picks the gate of ReLU
+# inputs near zero); in L2 the two fp32 steps are within 6e-3 of
+# float64 (NVIDIA H100 80GB HBM3 at 700 W, this script's phase 7)
+TRAIN_LOSS_REL_TOL = 1e-4
+TRAIN_GRAD_L2_TOL = 2e-2
+TRAIN_BATCH = 8
+TRAIN_STEPS = 10
+
+# the card's published peaks (H100 SXM at 700 W): fp32 outside the
+# tensor cores and HBM bandwidth, for each kernel's least time
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+# K3's arithmetic per box pair, counted in csrc/rotated_iou.cu's header
+K3_OPS_PER_PAIR = 400
+# K4: one compare and one select per (i, j > i) pair of the sweep
+K4_OPS_PER_PAIR = 2
 
 KERNELS = [
     ("sparse_conv_gather_gemm", cuda_sparse_conv,
      "second_tpu_torch/csrc/sparse_conv.cu",
      "second_tpu/ops/banded_sparse.py:295"),
+    ("sparse_conv_weight_grad", cuda_sparse_conv_dw,
+     "second_tpu_torch/csrc/sparse_conv_dw.cu",
+     "second_tpu/ops/banded_sparse.py:457"),
     ("rotated_iou", cuda_iou, "second_tpu_torch/csrc/rotated_iou.cu",
      "second_tpu/ops/pallas_iou.py:124"),
     ("greedy_nms", cuda_nms, "second_tpu_torch/csrc/greedy_nms.cu",
      "second_tpu/ops/pallas_nms.py:44"),
 ]
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "inference": ("sparse_conv_gather_gemm", "rotated_iou", "greedy_nms"),
+    "train": ("sparse_conv_gather_gemm", "sparse_conv_weight_grad"),
+}
+# the 10 sparse convs of SpMiddleFHD (scales 0-2): (weight, rulebook,
+# submanifold)
+SPARSE_CONVS = [
+    ("subm0_w", "plan_subm0", True), ("subm1_w", "plan_subm0", True),
+    ("down2_w", "plan_conv0", False), ("subm3_w", "plan_subm1", True),
+    ("subm4_w", "plan_subm1", True), ("down5_w", "plan_conv1", False),
+    ("subm6_w", "plan_subm2", True), ("subm7_w", "plan_subm2", True),
+    ("subm8_w", "plan_subm2", True), ("down9_w", "plan_conv2", False)]
+
+
+def bound_ms(nbytes, ops):
+    """The least time (ms) of work that moves ``nbytes`` and does ``ops``
+    fp32 operations on the card, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def gather_conv_bound(b, vin, cin, slots, cout, weight_grad):
+    """Bytes and operations of one sparse conv (K1) or its weight
+    gradient (K2) on these rulebooks: each input read once, each output
+    written once, 2*Cin*Cout operations per hit (slot < Vin)."""
+    _, vout, k = slots.shape
+    hits = int((slots < vin).sum().item())
+    if weight_grad:  # feat, slots, dout in; dW out
+        nbytes = 4 * (b * vin * cin + b * vout * k + b * vout * cout
+                      + k * cin * cout)
+    else:  # feat, slots, W in; out
+        nbytes = 4 * (b * vin * cin + b * vout * k + k * cin * cout
+                      + b * vout * cout)
+    return nbytes, 2 * hits * cin * cout
+
+
+def conv_rows(example):
+    """Input rows of each rulebook: scale i's capacity."""
+    rows = {"plan_subm0": example["voxels"].shape[1]}
+    for i in range(3):
+        rows[f"plan_conv{i}"] = rows[f"plan_subm{i}"]
+        if i < 2:
+            rows[f"plan_subm{i + 1}"] = example[f"plan_conv{i}"].shape[1]
+    return rows
 
 
 def log(msg):
@@ -107,8 +210,8 @@ def phase_build():
         capture_output=True, text=True, check=True, timeout=60)
     log(smi.stdout.strip().splitlines()[0])
     t0 = time.perf_counter()
-    for _, module, _, _ in KERNELS:
-        module._load()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
+        list(pool.map(lambda kernel: kernel[1]._load(), KERNELS))
     log(f"build: {time.perf_counter() - t0:.3f} s for "
         f"{', '.join(m.KERNEL for _, m, _, _ in KERNELS)} "
         f"(nvcc, {' '.join(build.ARCH_FLAGS)})")
@@ -125,23 +228,16 @@ def phase_kernels(ctx, device):
     net = ctx.parts["net"]
     mid = net.middle_feature_extractor
     g = torch.Generator().manual_seed(0)
-    errs, k_ms, p_ms = [], 0.0, 0.0
-    # the frame's 10 sparse convs (scales 0-2): (weight name, rulebook)
-    convs = [("subm0_w", "plan_subm0"), ("subm1_w", "plan_subm0"),
-             ("down2_w", "plan_conv0"), ("subm3_w", "plan_subm1"),
-             ("subm4_w", "plan_subm1"), ("down5_w", "plan_conv1"),
-             ("subm6_w", "plan_subm2"), ("subm7_w", "plan_subm2"),
-             ("subm8_w", "plan_subm2"), ("down9_w", "plan_conv2")]
-    in_rows = {"plan_subm0": example["voxels"].shape[1]}
-    for i in range(3):
-        in_rows[f"plan_conv{i}"] = in_rows[f"plan_subm{i}"]
-        if i < 2:
-            in_rows[f"plan_subm{i + 1}"] = example[f"plan_conv{i}"].shape[1]
-    for wname, pname in convs:
+    errs, k_ms, p_ms, b_ms = [], 0.0, 0.0, {}
+    in_rows = conv_rows(example)
+    for wname, pname, _ in SPARSE_CONVS:
         w = getattr(mid, wname).detach()
         k, cin, cout = w.shape
         slots = torch.from_numpy(example[pname].astype(np.int32)).to(device)
         feat = torch.randn(1, in_rows[pname], cin, generator=g).to(device)
+        cb, co = gather_conv_bound(1, in_rows[pname], cin, slots, cout, False)
+        cms, cby = bound_ms(cb, co)
+        b_ms[cby] = b_ms.get(cby, 0.0) + cms
         out = cuda_sparse_conv.gather_gemm(feat, slots, w)
         ref = cuda_sparse_conv.gather_gemm_plain(feat, slots, w)
         err = (out - ref).abs().max().item()
@@ -155,10 +251,14 @@ def phase_kernels(ctx, device):
         p_ms += pms
         log(f"K1 {wname}: rows {tuple(feat.shape[1:])} -> "
             f"{tuple(slots.shape[1:])} x {cout}, max err {err:.3e}, "
-            f"kernel {kms:.4f} ms, plain {pms:.4f} ms")
-    results["sparse_conv_gather_gemm"] = (max(errs), k_ms, p_ms)
+            f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {cms:.4f} ms "
+            f"({cby}; {co / 1e9:.3f} GFLOP of hits, {cb / 1e6:.1f} MB)")
+    results["sparse_conv_gather_gemm"] = {
+        "max_abs_err": max(errs), "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": sum(b_ms.values()),
+        "bound_by": max(b_ms, key=b_ms.get), "library_ms": None}
     log(f"K1 frame total (10 convs): kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms")
+        f"plain {p_ms:.4f} ms, bound {sum(b_ms.values()):.4f} ms")
 
     rng = np.random.RandomState(1)
     centers = np.stack([rng.uniform(0, 70.4, 100), rng.uniform(-40, 40, 100)],
@@ -173,7 +273,12 @@ def phase_kernels(ctx, device):
     check(err <= K3_TOL, f"K3: max err {err} > {K3_TOL}")
     kms = cuda_ms(lambda: cuda_iou.rotated_iou_matrix(boxes, boxes))
     pms = cuda_ms(lambda: cuda_iou.rotated_iou_matrix_plain(boxes, boxes))
-    results["rotated_iou"] = (err, kms, pms)
+    n = boxes.shape[0]
+    k3_bound, k3_by = bound_ms(4 * (2 * n * 5 + n * n),
+                               K3_OPS_PER_PAIR * n * n)
+    results["rotated_iou"] = {
+        "max_abs_err": err, "ms": kms, "plain_ms": pms,
+        "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None}
     log(f"K3 [1000,5]x[1000,5]: max err {err:.3e}, kernel {kms:.4f} ms, "
         f"plain {pms:.4f} ms, pairs overlapping "
         f"{(ref > 0).float().mean().item():.4f}")
@@ -186,17 +291,36 @@ def phase_kernels(ctx, device):
     kms = cuda_ms(lambda: cuda_nms.greedy_suppress(ref, valid, 0.01))
     pms = cuda_ms(lambda: cuda_nms.greedy_suppress_plain(ref, valid, 0.01),
                   iters=3, warmup=1)
-    results["greedy_nms"] = (0.0, kms, pms)
+    k4_bound, k4_by = bound_ms(4 * n * n + 2 * n,
+                               K4_OPS_PER_PAIR * n * (n - 1) // 2)
+    results["greedy_nms"] = {
+        "max_abs_err": 0.0, "ms": kms, "plain_ms": pms,
+        "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None}
     log(f"K4 n=1000: keep mismatches 0 (kept {int(keep.sum())}), "
-        f"kernel {kms:.4f} ms, plain {pms:.4f} ms")
+        f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {k4_bound:.5f} ms "
+        f"({k4_by}); K3 bound {k3_bound:.5f} ms ({k3_by})")
     return results
+
+
+def reset_launches():
+    for _, module, _, _ in KERNELS:
+        module.launches = 0
+
+
+def read_launches(path):
+    """The launch counts since :func:`reset_launches`; each kernel of
+    ``path`` must have launched."""
+    launches = {name: module.launches for name, module, _, _ in KERNELS}
+    for name in PATH_KERNELS[path]:
+        check(launches[name] > 0,
+              f"the {path} path never launched {name}")
+    return launches
 
 
 def phase_slice(ctx):
     """4 requests through the port's entry points; returns the counts of
     kernel launches made during them."""
-    for _, module, _, _ in KERNELS:
-        module.launches = 0
+    reset_launches()
     for i in range(N_FRAMES):
         points = make_kitti_scene(np.random.RandomState(i))[0]
         torch.cuda.synchronize()
@@ -215,9 +339,7 @@ def phase_slice(ctx):
             f"{active}, {len(boxes)} detections, host prep "
             f"{(t1 - t0) * 1e3:.3f} ms, device inference "
             f"{(t2 - t1) * 1e3:.3f} ms, total {(t2 - t0) * 1e3:.3f} ms")
-    launches = {name: module.launches for name, module, _, _ in KERNELS}
-    for name, count in launches.items():
-        check(count > 0, f"the main path never launched {name}")
+    launches = read_launches("inference")
     log(f"launches in the {N_FRAMES} frames: {launches}")
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
@@ -378,6 +500,258 @@ def phase_breakdown(ctx):
         f"{k} {v:.3f}" for k, v in parts.items()))
 
 
+def train_input(i):
+    """Frame i of ``make_kitti_scene`` as the train reader hands it to
+    ``prep_pointcloud``: points with their boxes as annotations."""
+    points, boxes, names = make_kitti_scene(np.random.RandomState(i))
+    return {"lidar": {"points": points,
+                      "annotations": {"boxes": boxes, "names": names}}}
+
+
+def prepare_train_batch(prep):
+    """Host preparation of one batch of ``TRAIN_BATCH`` frames (the
+    augmentation draws from np.random, seeded here)."""
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    batch = merge_second_batch(
+        [prep(input_dict=train_input(i)) for i in range(TRAIN_BATCH)])
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"train batch: host preparation {ms:.3f} ms for {TRAIN_BATCH} "
+        f"frames ({ms / TRAIN_BATCH:.3f} ms per frame), voxels per frame "
+        f"{batch['num_voxels'][:, 0].tolist()}, positive anchors "
+        f"{int((batch['labels'] > 0).sum())}, active per stage "
+        f"{batch['sparse_active_counts'][:, :, 0].tolist()}")
+    return batch
+
+
+def phase_backward_kernels(net, batch, device):
+    """K2, K1's forward and K1's input gradient at the training shapes,
+    per sparse conv: against the plain versions, K2 twice for bitwise
+    equality. Returns K2's results for the kernels line (ms summed over
+    the 10 convs) and K1's largest error here."""
+    mid = net.middle_feature_extractor
+    rows = conv_rows(batch)
+    b = TRAIN_BATCH
+    g = torch.Generator().manual_seed(1)
+    errs, k1_errs, sums, b_ms = [], [], {}, {}
+    for wname, pname, subm in SPARSE_CONVS:
+        w = getattr(mid, wname).detach()
+        k, cin, cout = w.shape
+        vin = rows[pname]
+        slots = torch.from_numpy(batch[pname].astype(np.int32)).to(device)
+        vout = slots.shape[1]
+        feat = torch.randn(b, vin, cin, generator=g).to(device)
+        dout = torch.randn(b, vout, cout, generator=g).to(device)
+        dw = cuda_sparse_conv_dw.sparse_conv_dw(feat, slots, dout)
+        dw2 = cuda_sparse_conv_dw.sparse_conv_dw(feat, slots, dout)
+        check(torch.equal(dw, dw2), f"K2 {wname}: two calls differ")
+        ref = cuda_sparse_conv_dw.sparse_conv_dw_plain(feat, slots, dout)
+        err = (dw - ref).abs().max().item()
+        tol = K2_TOL * ref.abs().max().item()
+        check(err <= tol, f"K2 {wname}: max err {err} > {tol}")
+        errs.append(err)
+
+        f = feat.clone().requires_grad_()
+        out = SparseConvFunction.apply(f, w, slots, subm)
+        (dfeat,) = torch.autograd.grad((out * dout).sum(), f)
+        fp = feat.clone().requires_grad_()
+        out_p = cuda_sparse_conv.gather_gemm_plain(fp, slots, w)
+        (dfeat_p,) = torch.autograd.grad((out_p * dout).sum(), fp)
+        ferr = (out - out_p).abs().max().item()
+        ftol = K1_TOL * max(1.0, out_p.abs().max().item())
+        check(ferr <= ftol, f"K1 forward {wname}: max err {ferr} > {ftol}")
+        derr = (dfeat - dfeat_p).abs().max().item()
+        dtol = DGRAD_TOL * dfeat_p.abs().max().item()
+        check(derr <= dtol, f"K1 input grad {wname}: max err {derr} > {dtol}")
+        k1_errs += [ferr, derr]
+        del out, out_p, dfeat, dfeat_p, f, fp
+
+        # what the Function's backward launches: K1 over the mirrored
+        # (subm) or transposed (strided) rulebook
+        if subm:
+            st, w_b = slots, w.flip(0).transpose(1, 2).contiguous()
+        else:
+            st = transpose_rulebook(slots, vin)
+            w_b = w.transpose(1, 2).contiguous()
+        times = {
+            "k2": cuda_ms(lambda: cuda_sparse_conv_dw.sparse_conv_dw(
+                feat, slots, dout), iters=10, warmup=2),
+            "k2_plain": cuda_ms(lambda: cuda_sparse_conv_dw.sparse_conv_dw_plain(
+                feat, slots, dout), iters=5, warmup=1),
+            "k1_fwd": cuda_ms(lambda: cuda_sparse_conv.gather_gemm(
+                feat, slots, w), iters=10, warmup=2),
+            "k1_dgrad": cuda_ms(lambda: cuda_sparse_conv.gather_gemm(
+                dout, st, w_b), iters=10, warmup=2),
+            "k1_fwd_plain": cuda_ms(lambda: cuda_sparse_conv.gather_gemm_plain(
+                feat, slots, w), iters=5, warmup=1),
+            "k1_dgrad_plain": cuda_ms(
+                lambda: cuda_sparse_conv.gather_gemm_plain(dout, st, w_b),
+                iters=5, warmup=1),
+        }
+        for key, v in times.items():
+            sums[key] = sums.get(key, 0.0) + v
+        cb, co = gather_conv_bound(b, vin, cin, slots, cout, True)
+        cms, cby = bound_ms(cb, co)
+        b_ms[cby] = b_ms.get(cby, 0.0) + cms
+        # K1's forward does the same hits' products as K2 on these inputs
+        fms, fby = bound_ms(*gather_conv_bound(b, vin, cin, slots, cout,
+                                               False))
+        sums["k1_bound"] = sums.get("k1_bound", 0.0) + fms
+        log(f"K2 {wname}: [{b}, {vin}, {cin}] x [{b}, {vout}, {k}] x "
+            f"[{b}, {vout}, {cout}], max err {err:.3e} (of "
+            f"{ref.abs().max().item():.3e}), two calls bitwise equal, "
+            f"kernel {times['k2']:.4f} ms, plain {times['k2_plain']:.4f} ms, "
+            f"bound {cms:.4f} ms ({cby}; {co / 1e9:.3f} GFLOP of hits); "
+            f"K1 forward max err {ferr:.3e}, input grad max err "
+            f"{derr:.3e}, K1 forward "
+            f"{times['k1_fwd']:.4f} ms (plain {times['k1_fwd_plain']:.4f}, "
+            f"bound {fms:.4f} ms, {fby}), K1 input grad "
+            f"{times['k1_dgrad']:.4f} ms (plain "
+            f"{times['k1_dgrad_plain']:.4f})")
+        del feat, dout, ref, dw, dw2
+    torch.cuda.empty_cache()
+    log(f"backward kernels, batch {b}, 10 convs: K2 {sums['k2']:.4f} ms "
+        f"(plain {sums['k2_plain']:.4f}, bound {sum(b_ms.values()):.4f}), "
+        f"K1 forward {sums['k1_fwd']:.4f} ms (plain "
+        f"{sums['k1_fwd_plain']:.4f}, bound {sums['k1_bound']:.4f}), K1 "
+        f"input grad {sums['k1_dgrad']:.4f} ms (plain "
+        f"{sums['k1_dgrad_plain']:.4f})")
+    return {"max_abs_err": max(errs), "ms": sums["k2"],
+            "plain_ms": sums["k2_plain"], "bound_ms": sum(b_ms.values()),
+            "bound_by": max(b_ms, key=b_ms.get),
+            "library_ms": None}, max(k1_errs)
+
+
+def loss_and_grads(net, spec, example):
+    """Loss and gradients of one training forward on a copy of ``net``
+    (its batch statistics stay as they are)."""
+    net = copy.deepcopy(net)
+    loss = forward_loss(net, spec, example)["loss"]
+    names, params = zip(*net.named_parameters())
+    return loss.item(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def train_reference(cfg, parts, batch, device):
+    """One step's loss and gradients at batch 1 on the card against the
+    same network on the CPU (the plain kernels), in fp32 and float64."""
+    batch1 = {k: v[:1] for k, v in batch.items()
+              if isinstance(v, np.ndarray)}
+    loss_d, grads_d = loss_and_grads(
+        parts["net"], parts["spec"], example_to_device(batch1, device))
+    cpu = build_network(cfg, "cpu")
+    cpu["net"].load_state_dict(parts["net"].state_dict())
+    ex = example_to_device(batch1, "cpu")
+    t0 = time.perf_counter()
+    loss_c, grads_c = loss_and_grads(cpu["net"], cpu["spec"], ex)
+    ex64 = {k: v.double() if v.is_floating_point() else v
+            for k, v in ex.items()}
+    _, grads_64 = loss_and_grads(cpu["net"].double(), cpu["spec"], ex64)
+    log(f"train reference: batch 1 on the CPU in fp32 and float64 took "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock)")
+    rel = abs(loss_d - loss_c) / abs(loss_c)
+    log(f"train reference: batch 1 loss card {loss_d:.6f}, CPU "
+        f"{loss_c:.6f} (rel {rel:.3e})")
+    check(rel <= TRAIN_LOSS_REL_TOL,
+          f"train loss card {loss_d} vs CPU {loss_c}: rel {rel}")
+
+    def errors(grads):
+        """name -> (max |g - g64| / max |g64|, ||g - g64|| / ||g64||)"""
+        out = {}
+        for name, ref in grads_64.items():
+            d = grads[name].cpu().double() - ref
+            out[name] = ((d.abs().max() / ref.abs().max().clamp(min=1e-30))
+                         .item(), (d.norm() / ref.norm().clamp(min=1e-30))
+                         .item())
+        return out
+
+    err_d, err_c = errors(grads_d), errors(grads_c)
+    for label, err in (("card", err_d), ("CPU fp32", err_c)):
+        worst_max = max(err, key=lambda n: err[n][0])
+        worst_l2 = max(err, key=lambda n: err[n][1])
+        log(f"train reference: {label} gradients against float64 over "
+            f"{len(err)} tensors: worst max-norm {worst_max} at "
+            f"{err[worst_max][0]:.3e} of its largest magnitude, worst L2 "
+            f"{worst_l2} at {err[worst_l2][1]:.3e}")
+    name = max(err_d, key=lambda n: err_d[n][1])
+    check(err_d[name][1] <= TRAIN_GRAD_L2_TOL,
+          f"gradient {name}: card vs float64 L2 {err_d[name][1]} > "
+          f"{TRAIN_GRAD_L2_TOL}")
+
+
+def phase_train(cfg, parts, batch, device):
+    """The slice: the car.fhd train step at full width on the card,
+    ``TRAIN_STEPS`` steps on one repeated batch. Returns the kernel
+    launches made by those steps."""
+    net, spec = parts["net"], parts["spec"]
+    train_reference(cfg, parts, batch, device)
+    opt, lr_fn, mom_fn = opt_builder.build(
+        cfg.train_config.optimizer, cfg.train_config.steps,
+        list(net.parameters()))
+    step = make_train_step(net, spec, opt, lr_fn, mom_fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex = example_to_device(batch, device)
+    torch.cuda.synchronize()
+    log(f"train batch: H2D {(time.perf_counter() - t0) * 1e3:.3f} ms, "
+        f"{sum(v.numel() * v.element_size() for v in ex.values()) / 2**20:.1f}"
+        f" MiB")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(ex)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        losses.append(m["loss"].item())
+        log(f"train step {i}: device {ms:.3f} ms, loss {losses[-1]:.6f} "
+            f"(cls {m['cls_loss'].item():.6f}, loc {m['loc_loss'].item():.6f}, "
+            f"dir {m['dir_loss'].item():.6f}), lr {m['lr']:.6e}, grad norm "
+            f"{m['grad_norm'].item():.3f}, positives {int(m['num_pos'])}")
+    launches = read_launches("train")
+    log(f"launches in the {TRAIN_STEPS} train steps: {launches}")
+    log(f"train: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    check(losses[-1] < losses[0],
+          f"loss did not fall: step 0 {losses[0]}, last {losses[-1]}")
+
+    # one more step, part by part (CUDA-synchronised)
+    parts_ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts_ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    params = opt.params
+    timed("h2d", lambda: example_to_device(batch, device))
+    plan = {k: v for k, v in ex.items() if k.startswith("plan_")}
+    net.train()
+    vf = timed("vfe", lambda: net.voxel_feature_extractor(
+        ex["voxels"], ex["num_points"], ex["coordinates"]))
+    bev = timed("middle", lambda: net.middle_feature_extractor(
+        vf, ex["coordinates"], plan))
+    raw = timed("rpn", lambda: net.rpn(bev))
+    b = ex["voxels"].shape[0]
+    preds = {"box_preds": raw["box_preds"].reshape(b, -1, spec.box_code_size),
+             "cls_preds": raw["cls_preds"].reshape(b, -1, spec.num_class),
+             "dir_cls_preds": raw["dir_cls_preds"].reshape(
+                 b, -1, spec.num_direction_bins)}
+    res = timed("loss", lambda: compute_loss(spec, preds, ex))
+    grads = timed("backward", lambda: torch.autograd.grad(
+        res["loss"], params))
+    timed("optimizer", lambda: opt.step(list(grads), lr_fn(opt.count),
+                                        mom_fn(opt.count)))
+    log(f"train breakdown (device ms, one step at batch {b}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts_ms.items()))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU",
@@ -393,15 +767,28 @@ def main():
     ctx.build(CONFIG, device=device)
     ctx.init_random(0)
     results = phase_kernels(ctx, device)
-    launches = phase_slice(ctx)
+    launches = {"inference": phase_slice(ctx)}
     phase_reference(ctx)
     phase_breakdown(ctx)
+
+    cfg = load_pipeline_config(CONFIG)
+    parts = build_network(cfg, device)
+    init_weights(parts["net"], torch.Generator().manual_seed(0))
+    batch = prepare_train_batch(
+        build_prep_func(cfg.train_input_reader, parts, training=True))
+    results["sparse_conv_weight_grad"], k1_err = phase_backward_kernels(
+        parts["net"], batch, device)
+    k1 = results["sparse_conv_gather_gemm"]
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
+    launches["train"] = phase_train(cfg, parts, batch, device)
+
     kernels = []
     for name, _, source, replaces in KERNELS:
-        err, kms, pms = results[name]
+        by_path = {path: counts[name] for path, counts in launches.items()}
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": kms, "plain_ms": pms})
+                        "replaces": replaces,
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, **results[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,12 @@
 """Anchor generator from a ClassSetting (reference
 second/builder/anchor_generator_builder.py:8-48).
 
-A copy of ``second_tpu/builders/anchor_generator_builder.py``, which cannot be imported
-without JAX: its package's ``__init__`` imports the flax network
-builder."""
+The port's copy of ``second_tpu/builders/anchor_generator_builder.py``."""
 
 import numpy as np
 
-from second_tpu.configs import schema
-from second_tpu.core.anchor_generator import AnchorGeneratorRange, AnchorGeneratorStride
+from ..configs import schema
+from ..core.anchor_generator import AnchorGeneratorRange, AnchorGeneratorStride
 
 
 def build(class_cfg: schema.ClassSetting):

@@ -1,12 +1,10 @@
 """Box coder from proto config (reference
 second/pytorch/builder/box_coder_builder.py:8-28).
 
-A copy of ``second_tpu/builders/box_coder_builder.py``, which cannot be imported
-without JAX: its package's ``__init__`` imports the flax network
-builder."""
+The port's copy of ``second_tpu/builders/box_coder_builder.py``."""
 
-from second_tpu.configs import schema
-from second_tpu.core.box_coders import BevBoxCoder, GroundBox3dCoder
+from ..configs import schema
+from ..core.box_coders import BevBoxCoder, GroundBox3dCoder
 
 
 def build(box_coder_config: schema.BoxCoder):

@@ -3,21 +3,28 @@
 
 ``build_network(pipeline_cfg, device)`` builds the voxel generator, box
 coder, target assigner, anchors, the network on ``device`` (in eval
-mode) and the static ModelSpec of the predict post-process.
+mode) and the static ModelSpec of the loss and the predict
+post-process.
 """
 
 import numpy as np
 import torch
 
-from second_tpu.configs import schema
-from second_tpu.core import box_ops
-from second_tpu.core.box_coders import BevBoxCoder
-from second_tpu.utils.config_tool import get_downsample_factor
+from ..configs import schema
+from ..core import box_ops
+from ..core.box_coders import BevBoxCoder
+from ..utils.config_tool import get_downsample_factor
 
 from .. import models  # noqa: F401  (registers the modules)
 from ..models.registry import get_voxelnet_class
 from ..models.voxelnet import ModelSpec
-from . import box_coder_builder, target_assigner_builder, voxel_builder
+from ..ops import losses as L
+from . import (
+    box_coder_builder,
+    losses_builder,
+    target_assigner_builder,
+    voxel_builder,
+)
 
 
 def _nms_params(ta_cfg: schema.TargetAssigner):
@@ -49,6 +56,8 @@ def _nms_params(ta_cfg: schema.TargetAssigner):
 
 
 def build_model_spec(model_cfg: schema.VoxelNet, target_assigner):
+    cls_loss_fn, loc_loss_fn, cls_w, loc_w = losses_builder.build(
+        model_cfg.loss)
     rot_nms, pre, post, score, iou = _nms_params(model_cfg.target_assigner)
     box_coder = target_assigner.box_coder
     if isinstance(box_coder, BevBoxCoder):
@@ -57,6 +66,17 @@ def build_model_spec(model_cfg: schema.VoxelNet, target_assigner):
         num_class=len(model_cfg.target_assigner.class_settings),
         box_code_size=box_coder.code_size,
         num_anchor_per_loc=target_assigner.num_anchors_per_location,
+        cls_loss_fn=cls_loss_fn,
+        loc_loss_fn=loc_loss_fn,
+        dir_loss_fn=L.weighted_softmax_loss,
+        cls_loss_weight=cls_w,
+        loc_loss_weight=loc_w,
+        direction_loss_weight=model_cfg.direction_loss_weight,
+        pos_cls_weight=model_cfg.pos_class_weight,
+        neg_cls_weight=model_cfg.neg_class_weight,
+        loss_norm_type=int(model_cfg.loss_norm_type),
+        encode_rad_error_by_sin=model_cfg.encode_rad_error_by_sin,
+        sin_error_factor=model_cfg.sin_error_factor or 1.0,
         encode_background_as_zeros=model_cfg.encode_background_as_zeros,
         use_sigmoid_score=model_cfg.use_sigmoid_score,
         use_direction_classifier=model_cfg.use_direction_classifier,

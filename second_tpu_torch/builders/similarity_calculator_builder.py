@@ -1,12 +1,10 @@
 """Region similarity calculator from proto config (reference
 second/builder/similarity_calculator_builder.py:7-31).
 
-A copy of ``second_tpu/builders/similarity_calculator_builder.py``, which cannot be imported
-without JAX: its package's ``__init__`` imports the flax network
-builder."""
+The port's copy of ``second_tpu/builders/similarity_calculator_builder.py``."""
 
-from second_tpu.configs import schema
-from second_tpu.core import region_similarity
+from ..configs import schema
+from ..core import region_similarity
 
 
 def build(similarity_config: schema.RegionSimilarityCalculator):

@@ -1,12 +1,10 @@
 """TargetAssigner from proto config (reference
 second/builder/target_assigner_builder.py:8-53).
 
-A copy of ``second_tpu/builders/target_assigner_builder.py``, which cannot be imported
-without JAX: its package's ``__init__`` imports the flax network
-builder."""
+The port's copy of ``second_tpu/builders/target_assigner_builder.py``."""
 
-from second_tpu.configs import schema
-from second_tpu.core.target_assigner import TargetAssigner
+from ..configs import schema
+from ..core.target_assigner import TargetAssigner
 from . import anchor_generator_builder, similarity_calculator_builder
 
 

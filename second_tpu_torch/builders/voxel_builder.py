@@ -1,12 +1,10 @@
 """VoxelGenerator from proto config (reference
 second/builder/voxel_builder.py:7-33).
 
-A copy of ``second_tpu/builders/voxel_builder.py``, which cannot be imported
-without JAX: its package's ``__init__`` imports the flax network
-builder."""
+The port's copy of ``second_tpu/builders/voxel_builder.py``."""
 
-from second_tpu.configs import schema
-from second_tpu.data.voxelizer import VoxelGenerator
+from ..configs import schema
+from ..data.voxelizer import VoxelGenerator
 
 
 def build(voxel_config: schema.VoxelGenerator) -> VoxelGenerator:

@@ -8,56 +8,30 @@ Usage:
     example = ctx.get_inference_input_dict(info, points)
     dets = ctx.inference(example)   # ragged per-frame dicts
 
-The host side (voxelizer, anchors, rulebook planner) is the JAX
-package's framework-free numpy and C++; the network, decode and NMS
-run in PyTorch on ``device``.
+The host side (voxelizer, anchors, rulebook planner) is the port's copy
+of the JAX package's framework-free numpy and C++; the network, decode
+and NMS run in PyTorch on ``device``.
 """
-
-from functools import partial
 
 import numpy as np
 import torch
 
-from second_tpu.configs import load_pipeline_config
-
+from ..builders.dataset_builder import build_prep_func
 from ..builders.network_builder import build_network
-from ..data import merge_second_batch, prep_pointcloud
-from ..models.sparse_middle import (
-    SPARSE_MIDDLE_NAMES,
-    build_host_plan,
-    plan_scales,
-)
+from ..configs import load_pipeline_config
+from ..data import merge_second_batch
 from ..models.voxelnet import init_weights, predict
 from ..utils.from_flax import from_flax
 
 
-def sort_and_plan(example, scales):
-    """Sort an example's voxels by linear id and add the host rulebooks
-    (what ``prep_pointcloud(sparse_plan_scales=...)`` does in the JAX
-    package, with the port's planner)."""
-    coords = example["coordinates"]
-    d, h, w = scales[0]["shape"]
-    lin = np.where(
-        coords[:, 0] >= 0,
-        (coords[:, 0].astype(np.int64) * h + coords[:, 1]) * w + coords[:, 2],
-        d * h * w)
-    order = np.argsort(lin, kind="stable")
-    for key in ("voxels", "coordinates", "num_points"):
-        example[key] = example[key][order]
-    plan, counts = build_host_plan(
-        example["coordinates"], scales, return_counts=True)
-    example.update(plan)
-    example["sparse_active_counts"] = np.array(
-        [counts[i] for i in sorted(counts)], dtype=np.int32)
-    return example
-
-
 def example_to_device(example, device):
-    """The network's inputs of a host batch as tensors on ``device``;
-    rulebooks as int32."""
+    """The network's inputs (and the training targets, where the batch
+    has them) of a host batch as tensors on ``device``; rulebooks as
+    int32."""
     dtypes = {"voxels": np.float32, "num_points": np.int32,
               "coordinates": np.int32, "anchors": np.float32,
-              "anchors_mask": np.bool_}
+              "anchors_mask": np.bool_, "labels": np.int64,
+              "reg_targets": np.float32, "importance": np.float32}
     out = {}
     for k, v in example.items():
         if k in dtypes:
@@ -73,7 +47,6 @@ class InferenceContext:
         self.parts = None
         self.prep_func = None
         self.device = None
-        self._scales = None
 
     def build(self, config_path_or_config, device):
         if isinstance(config_path_or_config, str):
@@ -82,29 +55,8 @@ class InferenceContext:
             self.config = config_path_or_config
         self.device = torch.device(device)
         self.parts = build_network(self.config, self.device)
-        input_cfg = self.config.eval_input_reader
-        model_cfg = self.parts["model_cfg"]
-        max_voxels = input_cfg.preprocess.max_number_of_voxels or 20000
-        mid_name = model_cfg.middle_feature_extractor.module_class_name
-        if mid_name not in SPARSE_MIDDLE_NAMES:
-            raise NotImplementedError(
-                f"middle {mid_name!r} is not ported yet")
-        self._scales = plan_scales(
-            mid_name, self.parts["dense_shape"], max_voxels)
-        self.prep_func = partial(
-            prep_pointcloud,
-            root_path="",
-            voxel_generator=self.parts["voxel_generator"],
-            target_assigner=self.parts["target_assigner"],
-            training=False,
-            max_voxels=max_voxels,
-            shuffle_points=False,
-            anchor_area_threshold=input_cfg.preprocess.anchor_area_threshold,
-            anchor_cache=self.parts["anchor_cache"],
-            out_size_factor=self.parts["out_size_factor"],
-            num_point_features=model_cfg.num_point_features,
-            sparse_plan_scales=None,
-        )
+        self.prep_func = build_prep_func(
+            self.config.eval_input_reader, self.parts, training=False)
 
     def get_inference_input_dict(self, info, points):
         if self.parts is None:
@@ -124,8 +76,7 @@ class InferenceContext:
                 "P2": calib["P2"],
             }
             input_dict["image"] = info.get("image")
-        example = sort_and_plan(self.prep_func(input_dict=input_dict),
-                                self._scales)
+        example = self.prep_func(input_dict=input_dict)
         example["metadata"] = input_dict["metadata"]
         return merge_second_batch([example])
 

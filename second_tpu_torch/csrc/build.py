@@ -28,6 +28,7 @@ BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_name_locks = {}  # one per kernel: different kernels build concurrently
 _libs = {}
 
 
@@ -68,6 +69,8 @@ def load(name, extra_flags=()):
     """Build (once per process, or when the source changed) and
     ctypes-load ``csrc/<name>.cu``. Returns the ``ctypes.CDLL``."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         src = CSRC / f"{name}.cu"

@@ -1,12 +1,6 @@
-"""The host data pipeline of the port.
+"""The host data pipeline of the port: the C++ voxelizer, preprocessing
+and synthetic scenes (copies of the JAX package's framework-free numpy
+and C++ in ``second_tpu/data``)."""
 
-Voxelizer, preprocessing and synthetic scenes are the JAX package's
-framework-free numpy and C++ (``second_tpu.data``), shared as they are;
-the port reaches them through this module.
-"""
-
-from second_tpu.data.preprocess import (  # noqa: F401
-    merge_second_batch,
-    prep_pointcloud,
-)
-from second_tpu.data.synthetic import make_kitti_scene  # noqa: F401
+from .preprocess import merge_second_batch, prep_pointcloud  # noqa: F401
+from .synthetic import make_kitti_scene  # noqa: F401

@@ -3,7 +3,7 @@
 
 Scales 0-2 run submanifold and strided sparse convs over host-built
 rulebooks (:func:`build_host_plan`, the C++ planner of
-``second_tpu.native.sparse_plan``) through the gather-GEMM kernel K1.
+``second_tpu_torch.native.sparse_plan``) through the gather-GEMM kernel K1.
 From ``dense_from_scale`` on, the convs run as masked dense ``conv3d``
 over the scattered grid: inactive inputs are zero, so a subm conv is
 ``mask * conv(x)``, and a strided conv's active set is every output
@@ -22,8 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from second_tpu.native import sparse_plan as native_plan
-
+from ..native import sparse_plan as native_plan
 from ..ops import sparse
 from .layers import MaskedBatchNorm
 from .registry import get_middle_class, register_middle
@@ -206,8 +205,11 @@ class SparseMiddleBase(nn.Module):
     def _weight(self, op, li):
         return getattr(self, f"{op[0]}{li}_w")
 
-    def _norm_relu(self, x, li, channel_dim):
-        return F.relu(getattr(self, f"bn{li}")(x, channel_dim=channel_dim))
+    def _norm_relu(self, x, li, mask, channel_dim):
+        """Batch norm (statistics over the active rows ``mask`` in
+        training) and ReLU."""
+        return F.relu(getattr(self, f"bn{li}")(
+            x, mask=mask, channel_dim=channel_dim))
 
     def forward(self, voxel_features, coords, plan):
         """voxel_features [B, V, C], coords [B, V, 3] int32 zyx sorted by
@@ -249,7 +251,7 @@ class SparseMiddleBase(nn.Module):
                 else:
                     grid = sparse.sparse_conv_apply(
                         grid, out_grid, down_slots, w)
-                feats = self._norm_relu(grid.features, li, -1)
+                feats = self._norm_relu(grid.features, li, grid.valid, -1)
                 feats = torch.where(grid.valid[..., None], feats,
                                     torch.zeros_like(feats))
                 grid = grid._replace(features=feats)
@@ -279,7 +281,7 @@ class SparseMiddleBase(nn.Module):
                 ones = mask.new_ones((1, 1) + kernel, dtype=feats.dtype)
                 mask = F.conv3d(mask[:, None].to(feats.dtype), ones,
                                 stride=stride, padding=pad)[:, 0] > 0.5
-            out = self._norm_relu(out, li, 1)
+            out = self._norm_relu(out, li, mask, 1)
             feats = torch.where(mask[:, None], out, torch.zeros_like(out))
             li += 1
         return feats, mask

@@ -1,20 +1,23 @@
-"""VoxelNet: VFE + sparse middle + RPN, plus the predict post-process
-(twin of ``second_tpu/models/voxelnet.py``).
+"""VoxelNet: VFE + sparse middle + RPN, plus the loss and the predict
+post-process (twin of ``second_tpu/models/voxelnet.py``).
 
 ``VoxelNet`` is the network forward, voxels -> preds [B, A, ...];
-``ModelSpec`` holds the post-process settings built once from the
-config; :func:`predict` turns preds into fixed-size detections with a
-validity mask, on the device, through the NMS of ``ops.nms``.
+``ModelSpec`` holds the loss and post-process settings built once from
+the config; :func:`compute_loss` is the training loss;
+:func:`predict` turns preds into fixed-size detections with a validity
+mask, on the device, through the NMS of ``ops.nms``.
 """
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import box_ops_torch
+from ..ops import losses as L
 from ..ops.nms import nms_bev
 from .layers import MaskedBatchNorm
 from .registry import (
@@ -27,12 +30,25 @@ from .registry import (
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    """Static post-process configuration (the predict fields of the JAX
-    ``ModelSpec``; the loss fields come with training)."""
+    """Static loss and post-process configuration (the JAX
+    ``ModelSpec`` less its BEV-coder and multi-class NMS fields)."""
 
     num_class: int
     box_code_size: int
     num_anchor_per_loc: int
+    # loss
+    cls_loss_fn: Callable = None
+    loc_loss_fn: Callable = None
+    dir_loss_fn: Callable = None
+    cls_loss_weight: float = 1.0
+    loc_loss_weight: float = 2.0
+    direction_loss_weight: float = 0.2
+    pos_cls_weight: float = 1.0
+    neg_cls_weight: float = 1.0
+    loss_norm_type: int = L.NORM_BY_NUM_POSITIVES
+    encode_rad_error_by_sin: bool = True
+    sin_error_factor: float = 1.0
+    # box coder, nms and post-process
     encode_background_as_zeros: bool = True
     use_sigmoid_score: bool = True
     use_direction_classifier: bool = True
@@ -157,6 +173,65 @@ def init_weights(net, generator):
     for name, p in net.named_parameters():
         if name.endswith("_w"):  # sparse middle [K, Cin, Cout]
             p.copy_(draw(p.shape, (p.shape[0] * p.shape[1]) ** -0.5, False))
+
+
+def compute_loss(spec: ModelSpec, preds: Dict[str, torch.Tensor],
+                 example: Dict[str, torch.Tensor]):
+    """The training loss (reference voxelnet.py:239-312 + 704-830):
+    preds [B, A, ...] and the example's labels [B, A], reg_targets
+    [B, A, code], anchors and optional importance -> dict of scalars."""
+    box_preds = preds["box_preds"]
+    cls_preds = preds["cls_preds"]
+    batch_size = box_preds.shape[0]
+    labels = example["labels"]
+    reg_targets = example["reg_targets"]
+    importance = example.get("importance")
+    if importance is None:
+        importance = torch.ones_like(labels, dtype=box_preds.dtype)
+
+    cls_weights, reg_weights, cared = L.prepare_loss_weights(
+        labels, pos_cls_weight=spec.pos_cls_weight,
+        neg_cls_weight=spec.neg_cls_weight,
+        loss_norm_type=spec.loss_norm_type, dtype=box_preds.dtype)
+    cls_targets = (labels * cared.to(labels.dtype)).long()
+    one_hot = F.one_hot(cls_targets, spec.num_class + 1).to(box_preds.dtype)
+    if spec.encode_background_as_zeros:
+        one_hot = one_hot[..., 1:]
+    bp, rt = box_preds, reg_targets
+    if spec.encode_rad_error_by_sin:
+        bp, rt = L.add_sin_difference(bp, rt, spec.sin_error_factor)
+    loc_losses = spec.loc_loss_fn(bp, rt, weights=reg_weights * importance)
+    cls_losses = spec.cls_loss_fn(
+        cls_preds, one_hot, weights=cls_weights * importance)
+
+    loc_loss_reduced = loc_losses.sum() / batch_size * spec.loc_loss_weight
+    cls_loss_sum = cls_losses.sum(dim=-1)  # [B, A]
+    cls_pos = (cls_loss_sum * (labels > 0)).sum() / batch_size
+    cls_neg = (cls_loss_sum * (labels == 0)).sum() / batch_size
+    cls_loss_reduced = cls_losses.sum() / batch_size * spec.cls_loss_weight
+    loss = loc_loss_reduced + cls_loss_reduced
+
+    res = {
+        "loss": loss,
+        "cls_loss_reduced": cls_loss_reduced,
+        "loc_loss_reduced": loc_loss_reduced,
+        "cls_pos_loss": cls_pos / spec.pos_cls_weight,
+        "cls_neg_loss": cls_neg / spec.neg_cls_weight,
+        "cared": cared,
+        "cls_preds": cls_preds,
+    }
+    if spec.use_direction_classifier:
+        dir_targets = L.get_direction_target(
+            example["anchors"], reg_targets, dir_offset=spec.dir_offset,
+            num_bins=spec.num_direction_bins, dtype=box_preds.dtype)
+        weights = (labels > 0).to(box_preds.dtype) * importance
+        weights = weights / weights.sum(-1, keepdim=True).clamp(min=1.0)
+        dir_loss = spec.dir_loss_fn(preds["dir_cls_preds"], dir_targets,
+                                    weights=weights)
+        dir_loss = dir_loss.sum() / batch_size
+        res["dir_loss_reduced"] = dir_loss
+        res["loss"] = loss + dir_loss * spec.direction_loss_weight
+    return res
 
 
 def _single_frame_predict(spec: ModelSpec, box_preds, cls_preds, dir_preds,

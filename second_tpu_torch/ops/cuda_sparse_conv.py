@@ -41,19 +41,26 @@ def _load():
     return _lib
 
 
-def gather_gemm_plain(feat, slots, weight, bias=None):
-    """Plain PyTorch version: gather [B, Vout, K, Cin] then one
-    [K*Cin, Cout] matmul (the JAX package's ``ops.sparse`` formulation)."""
+def gather_rows(feat, slots):
+    """feat [B, Vin, C], slots [B, Vout, K] -> the rulebook's rows
+    [B, Vout, K*C]; a slot outside [0, Vin) reads a zero row."""
     b, vin, cin = feat.shape
     _, vout, k = slots.shape
-    cout = weight.shape[-1]
     slots = slots.long()
     slots = torch.where((slots >= 0) & (slots < vin), slots,
                         torch.full_like(slots, vin))
+    slots = slots + (vin + 1) * torch.arange(
+        b, device=slots.device)[:, None, None]
     feat_pad = torch.cat([feat, feat.new_zeros(b, 1, cin)], dim=1)
-    rows = torch.gather(
-        feat_pad, 1, slots.reshape(b, vout * k, 1).expand(-1, -1, cin))
-    out = rows.reshape(b, vout, k * cin) @ weight.reshape(k * cin, cout)
+    return feat_pad.reshape(b * (vin + 1), cin)[slots.reshape(-1)].reshape(
+        b, vout, k * cin)
+
+
+def gather_gemm_plain(feat, slots, weight, bias=None):
+    """Plain PyTorch version: gather [B, Vout, K*Cin] then one
+    [K*Cin, Cout] matmul (the JAX package's ``ops.sparse`` formulation)."""
+    k, cin, cout = weight.shape
+    out = gather_rows(feat, slots) @ weight.reshape(k * cin, cout)
     if bias is not None:
         out = out + bias
     return out

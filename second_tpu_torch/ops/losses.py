@@ -1,0 +1,197 @@
+"""Loss functions (twin of ``second_tpu/ops/losses.py``, less the GHM
+losses).
+
+Formula parity with the reference loss zoo
+(second/pytorch/core/losses.py): TF-compatible elementwise sigmoid CE,
+sigmoid/softmax focal losses, weighted smooth-L1 with sigma +
+per-dimension code weights, weighted softmax (direction head), and the
+loss-weight preparation / sin-difference machinery from
+second/pytorch/models/voxelnet.py:704-830.
+
+All functions take [B, A, ...] and return per-anchor losses; reduction
+happens in the model's loss assembly.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def sigmoid_cross_entropy_with_logits(logits, labels):
+    """Elementwise TF-style stable sigmoid CE."""
+    return (logits.clamp(min=0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
+def softmax_cross_entropy_with_logits(logits, labels_onehot):
+    """CE against the argmax of a one-hot target (reference parity)."""
+    log_probs = F.log_softmax(logits, dim=-1)
+    hard = labels_onehot.argmax(dim=-1)
+    return -torch.gather(log_probs, -1, hard[..., None])[..., 0]
+
+
+def _code_weighted(diff, code_weights):
+    if code_weights is None:
+        return diff
+    return torch.as_tensor(code_weights, dtype=diff.dtype,
+                           device=diff.device).reshape(1, 1, -1) * diff
+
+
+def weighted_smooth_l1_loss(preds, targets, weights=None, sigma=3.0,
+                            code_weights=None, codewise=True):
+    """[B, A, C] -> [B, A, C] (codewise) or [B, A]."""
+    abs_diff = _code_weighted(preds - targets, code_weights).abs()
+    thresh = 1.0 / (sigma ** 2)
+    loss = torch.where(abs_diff <= thresh,
+                       0.5 * torch.square(abs_diff * sigma),
+                       abs_diff - 0.5 * thresh)
+    if codewise:
+        if weights is not None:
+            loss = loss * weights[..., None]
+        return loss
+    loss = loss.sum(dim=-1)
+    if weights is not None:
+        loss = loss * weights
+    return loss
+
+
+def weighted_l2_loss(preds, targets, weights=None, code_weights=None):
+    diff = _code_weighted(preds - targets, code_weights)
+    if weights is not None:
+        diff = diff * weights[..., None]
+    return (0.5 * diff * diff).sum(dim=-1)
+
+
+def sigmoid_focal_loss(preds, targets_onehot, weights=None, gamma=2.0,
+                       alpha=0.25):
+    """[B, A, C] logits + one-hot targets -> [B, A, C] losses."""
+    ce = sigmoid_cross_entropy_with_logits(preds, targets_onehot)
+    probs = torch.sigmoid(preds)
+    p_t = targets_onehot * probs + (1 - targets_onehot) * (1 - probs)
+    mod = torch.pow(1.0 - p_t, gamma) if gamma else 1.0
+    if alpha is not None:
+        alpha_w = targets_onehot * alpha + (1 - targets_onehot) * (1 - alpha)
+    else:
+        alpha_w = 1.0
+    loss = mod * alpha_w * ce
+    if weights is not None:
+        loss = loss * weights[..., None]
+    return loss
+
+
+def softmax_focal_loss(preds, targets_onehot, weights=None, gamma=2.0,
+                       alpha=0.25):
+    per_row_ce = softmax_cross_entropy_with_logits(preds, targets_onehot)
+    probs = torch.softmax(preds, dim=-1)
+    p_t = (targets_onehot * probs).sum(dim=-1)
+    mod = torch.pow(1.0 - p_t, gamma) if gamma else 1.0
+    alpha_w = 1.0
+    if alpha is not None:
+        # alpha on foreground rows (non-background argmax), reference parity
+        is_fg = targets_onehot.argmax(dim=-1) >= 1
+        alpha_w = torch.where(is_fg, alpha, 1 - alpha)
+    loss = mod * alpha_w * per_row_ce
+    if weights is not None:
+        loss = loss * weights
+    return loss
+
+
+def bootstrapped_sigmoid_loss(preds, targets_onehot, weights=None,
+                              alpha=0.5, hard_bootstrap=False):
+    """Bootstrapped sigmoid CE (Reed et al. 2015; reference
+    losses.py:395-452): targets are a convex mix of labels and the
+    model's own (hard or soft) predictions."""
+    probs = torch.sigmoid(preds)
+    boot = (probs > 0.5).to(preds.dtype) if hard_bootstrap else probs
+    mixed = alpha * targets_onehot + (1 - alpha) * boot
+    loss = sigmoid_cross_entropy_with_logits(preds, mixed)
+    if weights is not None:
+        loss = loss * weights[..., None]
+    return loss
+
+
+def weighted_sigmoid_loss(preds, targets_onehot, weights=None):
+    loss = sigmoid_cross_entropy_with_logits(preds, targets_onehot)
+    if weights is not None:
+        loss = loss * weights[..., None]
+    return loss
+
+
+def weighted_softmax_loss(preds, targets_onehot, weights=None,
+                          logit_scale=1.0):
+    if logit_scale and logit_scale != 1.0:
+        preds = preds / logit_scale
+    loss = softmax_cross_entropy_with_logits(preds, targets_onehot)
+    if weights is not None:
+        loss = loss * weights
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# loss assembly (reference voxelnet.py:704-830)
+# ---------------------------------------------------------------------------
+
+NORM_BY_NUM_EXAMPLES = 0
+NORM_BY_NUM_POSITIVES = 1
+NORM_BY_NUM_POS_NEG = 2
+DONT_NORM = 3
+
+
+def prepare_loss_weights(labels, pos_cls_weight=1.0, neg_cls_weight=1.0,
+                         loss_norm_type=NORM_BY_NUM_POSITIVES,
+                         dtype=torch.float32):
+    """labels [B, A] (-1 ignore, 0 bg, >0 class) -> cls/reg weights + cared."""
+    cared = labels >= 0
+    positives = labels > 0
+    negatives = labels == 0
+    cls_weights = (negatives.to(dtype) * neg_cls_weight
+                   + positives.to(dtype) * pos_cls_weight)
+    reg_weights = positives.to(dtype)
+    if loss_norm_type == NORM_BY_NUM_EXAMPLES:
+        num_examples = cared.to(dtype).sum(1, keepdim=True).clamp(min=1.0)
+        cls_weights = cls_weights / num_examples
+        bbox_norm = positives.to(dtype).sum(1, keepdim=True).clamp(min=1.0)
+        reg_weights = reg_weights / bbox_norm
+    elif loss_norm_type == NORM_BY_NUM_POSITIVES:
+        pos_norm = positives.to(dtype).sum(1, keepdim=True).clamp(min=1.0)
+        reg_weights = reg_weights / pos_norm
+        cls_weights = cls_weights / pos_norm
+    elif loss_norm_type == NORM_BY_NUM_POS_NEG:
+        pos_neg = torch.stack([positives, negatives], dim=-1).to(dtype)
+        normalizer = pos_neg.sum(1, keepdim=True)  # [B, 1, 2]
+        cls_normalizer = (pos_neg * normalizer).sum(-1).clamp(min=1.0)
+        normalizer = normalizer.clamp(min=1.0)
+        reg_weights = reg_weights / normalizer[:, 0:1, 0]
+        cls_weights = cls_weights / cls_normalizer
+    elif loss_norm_type == DONT_NORM:
+        pos_norm = positives.to(dtype).sum(1, keepdim=True).clamp(min=1.0)
+        reg_weights = reg_weights / pos_norm
+    else:
+        raise ValueError(f"unknown loss norm type {loss_norm_type}")
+    return cls_weights, reg_weights, cared
+
+
+def add_sin_difference(boxes1, boxes2, factor=1.0):
+    """Replace the two yaw channels with sin-difference encodings."""
+    r1 = boxes1[..., 6:7] * factor
+    r2 = boxes2[..., 6:7] * factor
+    rad_pred = torch.sin(r1) * torch.cos(r2)
+    rad_tg = torch.cos(r1) * torch.sin(r2)
+    boxes1 = torch.cat([boxes1[..., :6], rad_pred, boxes1[..., 7:]], dim=-1)
+    boxes2 = torch.cat([boxes2[..., :6], rad_tg, boxes2[..., 7:]], dim=-1)
+    return boxes1, boxes2
+
+
+def get_direction_target(anchors, reg_targets, dir_offset=0.0, num_bins=2,
+                         one_hot=True, dtype=torch.float32):
+    """Direction-bin classification targets from yaw residuals."""
+    rot_gt = reg_targets[..., 6] + anchors[..., 6]
+    offset_rot = rot_gt - dir_offset
+    offset_rot = offset_rot - torch.floor(
+        offset_rot / (2 * math.pi)) * (2 * math.pi)
+    dir_cls = torch.floor(offset_rot / (2 * math.pi / num_bins)).long()
+    dir_cls = dir_cls.clamp(0, num_bins - 1)
+    if one_hot:
+        return F.one_hot(dir_cls, num_bins).to(dtype)
+    return dir_cls

@@ -68,10 +68,13 @@ def from_flax(variables):
         mod, leaf, value = _convert_param(path, value)
         # a fresh C-order copy: flipped views of size-1 axes can keep
         # negative strides, which torch.from_numpy refuses
-        state[f"{mod}.{leaf}" if mod else leaf] = torch.from_numpy(
-            np.array(value, order="C"))
+        state[_key(mod, leaf)] = torch.from_numpy(np.array(value, order="C"))
     for path, value in _flatten(variables.get("batch_stats", {})):
         *mods, leaf = path
-        state[f"{_module_path(mods)}.{_STATS[leaf]}"] = torch.from_numpy(
+        state[_key(_module_path(mods), _STATS[leaf])] = torch.from_numpy(
             np.array(value, dtype=np.float32, order="C"))
     return state
+
+
+def _key(mod, leaf):
+    return f"{mod}.{leaf}" if mod else leaf

@@ -7,18 +7,24 @@ This file imports no JAX, so it runs on a GPU machine without it
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1 1e-4 (fp32 sums of K*Cin products in another order); K3
-1e-5 against the plain version on the card (fp32 rounding of the same
-arithmetic); K4 exact (a keep mask).
+Tolerances: K1 1e-4 (fp32 sums of K*Cin products in another order); K2
+1e-5 of the largest magnitude (fp32 sums over every rule row in another
+order), and bitwise equal across two calls; K3 1e-5 against the plain
+version on the card (fp32 rounding of the same arithmetic); K4 exact (a
+keep mask).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from second_tpu.core.rotated_iou import rotated_iou_matrix
-
-from second_tpu_torch.ops import cuda_iou, cuda_nms, cuda_sparse_conv
+from second_tpu_torch.core.rotated_iou import rotated_iou_matrix
+from second_tpu_torch.ops import (
+    cuda_iou,
+    cuda_nms,
+    cuda_sparse_conv,
+    cuda_sparse_conv_dw,
+)
 
 
 def _random_boxes(rng, n, spread=10.0):
@@ -64,6 +70,34 @@ def test_k1_cuda_matches_plain(cuda_device, cin, cout, k, vin, vout):
     torch.cuda.synchronize()
     assert cuda_sparse_conv.launches == before + 1
     torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,vin,vout", [
+    (4, 16, 17000, 17000),    # car.fhd train scale-0 first subm conv
+    (16, 32, 17000, 55296),   # scale-0 strided conv
+    (32, 32, 55296, 55296),   # scale-1 subm conv
+    (64, 64, 58112, 32640),   # scale-2 strided conv
+])
+def test_k2_cuda_matches_plain_and_is_deterministic(cuda_device, cin, cout,
+                                                    vin, vout):
+    g = torch.Generator().manual_seed(1)
+    b, k = 8, 27
+    feat = torch.randn(b, vin, cin, generator=g)
+    slots = torch.randint(0, int(vin * 2.5), (b, vout, k), generator=g)
+    slots = torch.where(slots < vin, slots, vin).to(torch.int32)
+    slots[:, vout // 2:] = vin  # capacity padding rows miss everywhere
+    dout = torch.randn(b, vout, cout, generator=g)
+    dev = [t.to(cuda_device) for t in (feat, slots, dout)]
+    ref = cuda_sparse_conv_dw.sparse_conv_dw_plain(*dev)
+    before = cuda_sparse_conv_dw.launches
+    dw = cuda_sparse_conv_dw.sparse_conv_dw(*dev)
+    dw2 = cuda_sparse_conv_dw.sparse_conv_dw(*dev)
+    torch.cuda.synchronize()
+    assert cuda_sparse_conv_dw.launches == before + 2
+    assert torch.equal(dw, dw2)
+    torch.testing.assert_close(dw, ref, rtol=0,
+                               atol=1e-5 * ref.abs().max().item())
 
 
 @pytest.mark.cuda

@@ -1,4 +1,5 @@
-"""The port's kernels (K1 sparse conv, K3 rotated IoU, K4 greedy NMS)
+"""The port's kernels (K1 sparse conv, K2 its weight gradient, K3
+rotated IoU, K4 greedy NMS) and the sparse conv's autograd Function
 against the JAX package.
 
 On the CPU each wrapper runs its plain PyTorch version; those are held
@@ -12,13 +13,16 @@ Pallas and against the fp64 ``core.rotated_iou`` (the port computes
 each pair centred on its first box, Pallas in scene coordinates, so
 Pallas is compared at 1e-5 within 4 m of the origin where both are
 accurate, and only at 1e-2 at full range, where Pallas drifts),
-1e-9 in fp64 against the core; K4 exact (a keep mask).
+1e-9 in fp64 against the core; K4 exact (a keep mask); K2 and the
+conv's gradients 1e-5 of the largest magnitude (fp32 sums in another
+order); the transpose rulebook exact.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from second_tpu.core.rotated_iou import rotated_iou_matrix
@@ -28,7 +32,12 @@ from second_tpu.ops import sparse as jsparse
 from second_tpu.ops.pallas_iou import rotated_iou_matrix_pallas
 from second_tpu.ops.pallas_nms import greedy_suppress_pallas
 
-from second_tpu_torch.ops import cuda_iou, cuda_nms, cuda_sparse_conv
+from second_tpu_torch.ops import (
+    cuda_iou,
+    cuda_nms,
+    cuda_sparse_conv,
+    cuda_sparse_conv_dw,
+)
 from second_tpu_torch.ops import sparse as tsparse
 
 
@@ -272,3 +281,139 @@ def test_k4_matches_pallas_and_fori(threshold):
     assert 0 < keep.sum() < valid.sum()  # some kept, some suppressed
     np.testing.assert_array_equal(keep, pallas)
     np.testing.assert_array_equal(keep, fori)
+
+
+# --------------------------------------------------------------- K2 and
+# the sparse conv's backward
+
+
+def _conv_case(kind, seed, b=2, v=160, c=8, cout=16):
+    """A random sparse grid and its JAX rulebook: (feats, coords, shape,
+    slots [B, Vout, K] with miss = V, the output grid, kernel)."""
+    rng = np.random.RandomState(seed)
+    shape = (6, 16, 16)
+    feats, coords = _random_grid(rng, b, v, c, shape, density=0.8)
+    jgrid = jsparse.from_voxel_coords(
+        jnp.asarray(feats), jnp.asarray(coords), shape)
+    kernel = (3, 3, 3)
+    k = int(np.prod(kernel))
+    if kind == "subm":
+        slots, found = jsparse.build_subm_rulebook(jgrid, kernel)
+        jout = jgrid
+    else:
+        jout = jsparse.downsample_active_set(jgrid, kernel, (2, 2, 2),
+                                             (1, 1, 1), out_capacity=256)
+        ilin, ok, _ = jsparse.sparse_conv_queries(
+            jgrid, jout, kernel, (2, 2, 2), (1, 1, 1))
+        slots, found = jsparse._lookup(jgrid.lin, ilin, ok, jgrid.sentinel)
+        vout = jout.lin.shape[-1]
+        slots, found = slots.reshape(b, vout, k), found.reshape(b, vout, k)
+    slots = np.array(slots, np.int32)
+    assert (slots == v).any() and (slots < v).any()  # hits and misses
+    w = (rng.randn(k, c, cout) * 0.1).astype(np.float32)
+    dout = rng.randn(b, slots.shape[1], cout).astype(np.float32)
+    dout *= np.asarray(jout.valid)[..., None]  # masked rows carry none
+    return dict(feats=feats, coords=coords, shape=shape, slots=slots,
+                found=np.asarray(found), w=w, dout=dout, jgrid=jgrid,
+                jout=jout, v=v)
+
+
+def _jax_conv(case, feats, w):
+    if case["jgrid"] is case["jout"]:
+        return jsparse.subm_conv(
+            case["jgrid"]._replace(features=feats),
+            (jnp.asarray(case["slots"]), None), w).features
+    return jsparse.sparse_conv_apply(
+        case["jgrid"]._replace(features=feats), case["jout"],
+        jnp.asarray(case["slots"]), w).features
+
+
+def _close(a, ref, rel):
+    """max |a - ref| <= rel * max |ref| (fp32 sums in another order)."""
+    ref = np.asarray(ref)
+    assert np.abs(ref).max() > 0
+    np.testing.assert_allclose(a, ref, rtol=0,
+                               atol=rel * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("kind", ["subm", "strided"])
+def test_k2_plain_matches_pallas_and_grad(kind):
+    """K2's plain version against the Pallas ``_banded_dw`` in interpret
+    mode and against jax.grad of the gather path, miss slots included."""
+    case = _conv_case(kind, seed=11)
+    feats, slots, dout, w = (case["feats"], case["slots"], case["dout"],
+                             case["w"])
+    before = cuda_sparse_conv_dw.launches
+    dw = cuda_sparse_conv_dw.sparse_conv_dw(
+        torch.from_numpy(feats), torch.from_numpy(slots),
+        torch.from_numpy(dout)).numpy()
+    assert cuda_sparse_conv_dw.launches == before
+
+    plan = bs.build_banded_plan(jnp.asarray(slots), jnp.asarray(case["found"]),
+                                v_in=case["v"], kx=3, cor_capacity=2048)
+    pallas = bs._banded_dw(jnp.asarray(feats), jnp.asarray(dout), plan,
+                           interpret=True)
+    _close(dw, pallas, 1e-5)
+
+    def loss(w_):
+        return jnp.sum(_jax_conv(case, jnp.asarray(feats), w_)
+                       * jnp.asarray(dout))
+
+    _close(dw, jax.grad(loss)(jnp.asarray(w)), 1e-5)
+
+
+@pytest.mark.parametrize("kind", ["subm", "strided"])
+def test_transpose_rulebook_matches_jax(kind):
+    case = _conv_case(kind, seed=12)
+    slots, v = case["slots"], case["v"]
+    out = tsparse.transpose_rulebook(torch.from_numpy(slots), v).numpy()
+    np.testing.assert_array_equal(
+        out, np.asarray(bs.transpose_rulebook(jnp.asarray(slots), v_in=v)))
+    host = np.stack([bs.host_transpose_rulebook(s, v_in=v) for s in slots])
+    np.testing.assert_array_equal(out, host)
+
+
+@pytest.mark.parametrize("kind", ["subm", "strided"])
+def test_sparse_conv_function_gradcheck(kind):
+    """The autograd Function's K1 input gradient and K2 weight gradient
+    (plain versions here) against finite differences, in float64
+    (``fast_mode``: the Jacobians compared along random directions,
+    instead of one backward per output element)."""
+    case = _conv_case(kind, seed=13, b=1, v=48, c=3, cout=4)
+    feats = torch.from_numpy(case["feats"]).double().requires_grad_()
+    w = torch.from_numpy(case["w"]).double().requires_grad_()
+    slots = torch.from_numpy(case["slots"])
+    assert torch.autograd.gradcheck(
+        lambda f, w_: tsparse.SparseConvFunction.apply(
+            f, w_, slots, kind == "subm"), (feats, w), fast_mode=True)
+
+
+@pytest.mark.parametrize("kind", ["subm", "strided"])
+def test_sparse_conv_function_grads_match_jax(kind):
+    """dfeat and dW of the port's subm_conv / sparse_conv_apply against
+    jax.grad of the JAX package's, on the active rows (inactive rows get
+    no gradient on either side)."""
+    case = _conv_case(kind, seed=14)
+    feats = torch.from_numpy(case["feats"]).requires_grad_()
+    w = torch.from_numpy(case["w"]).requires_grad_()
+    slots = torch.from_numpy(case["slots"])
+    grid = _torch_grid(case["feats"], case["coords"], case["shape"])
+    grid = grid._replace(features=feats)
+    if kind == "subm":
+        out = tsparse.subm_conv(grid, slots, w)
+    else:
+        jout = case["jout"]
+        out_grid = tsparse.from_sorted_voxel_coords(
+            None, torch.from_numpy(np.array(jout.coords)), jout.shape)
+        out = tsparse.sparse_conv_apply(grid, out_grid, slots, w)
+    dout = case["dout"]
+    (out.features * torch.from_numpy(dout)).sum().backward()
+
+    def loss(f, w_):
+        return jnp.sum(_jax_conv(case, f, w_) * jnp.asarray(dout))
+
+    gf, gw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(case["feats"]),
+                                             jnp.asarray(case["w"]))
+    active = np.asarray(case["jgrid"].valid)
+    _close(feats.grad.numpy()[active], np.asarray(gf)[active], 1e-5)
+    _close(w.grad.numpy(), gw, 1e-5)

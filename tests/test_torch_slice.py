@@ -24,6 +24,7 @@ from second_tpu.core.inference import InferenceContext as JaxContext
 from second_tpu.train.__main__ import example_convert
 from second_tpu.train.state import TrainState
 
+from second_tpu_torch import configs as port_configs
 from second_tpu_torch.core.inference import InferenceContext
 
 SMALL_FHD_CONFIG = """
@@ -72,6 +73,9 @@ model: {
     direction_loss_weight: 0.2
     num_direction_bins: 2
     direction_limit_offset: 1
+    sin_error_factor: 1.0
+    pos_class_weight: 1.0
+    neg_class_weight: 1.0
     loss_norm_type: NormByNumPositives
     post_center_limit_range: [0, -3.2, -2.2, 6.4, 3.2, 0.8]
     box_coder: {
@@ -99,6 +103,22 @@ model: {
       sample_size : 512
       assign_per_class: true
     }
+  }
+}
+train_input_reader: {
+  batch_size: 2
+  preprocess: {
+    max_number_of_voxels: 3000
+    shuffle_points: true
+    groundtruth_localization_noise_std: [1.0, 1.0, 0.5]
+    groundtruth_rotation_uniform_noise: [-0.78539816, 0.78539816]
+    global_rotation_uniform_noise: [-0.78539816, 0.78539816]
+    global_scaling_uniform_noise: [0.95, 1.05]
+    global_random_rotation_range_per_object: [0, 0]
+    global_translate_noise_std: [0, 0, 0]
+    anchor_area_threshold: -1
+    random_flip_x: false
+    random_flip_y: true
   }
 }
 train_config: {
@@ -180,7 +200,8 @@ def both():
         params=variables["params"], batch_stats=variables["batch_stats"],
         opt_state=(), global_step=jnp.zeros((), jnp.int32))
     tctx = InferenceContext()
-    tctx.build(loads_pipeline_config(SMALL_FHD_CONFIG), device="cpu")
+    tctx.build(port_configs.loads_pipeline_config(SMALL_FHD_CONFIG),
+               device="cpu")
     tctx.load_flax_variables(variables)
     return jctx, tctx, small_fhd_points()
 
