@@ -14,7 +14,12 @@ car.fhd training steps at the train reader's batch 8 through
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it (K1 on the rulebooks of a
      ``make_kitti_scene`` frame, K3 at [1000, 5] x [1000, 5], K4 at
-     n = 1000): max error, kernel ms and plain ms (CUDA events);
+     n = 1000): max error, kernel ms and plain ms (CUDA events); for
+     each K1 conv also two calls bitwise equal, the 64-row tiles it
+     skips as empty and the (tile, offset) pairs it runs (counted from
+     the slots with plain torch), the TFLOP/s of the hits, and two
+     bounds: fp32 at 67 TFLOP/s and 3xTF32 (three TF32 products per
+     product at 495 TFLOP/s);
   3. the slice: 4 requests from ``make_kitti_scene(RandomState(i))``,
      each with its detection count and CUDA-synchronised ms; every
      kernel's launch counter must have risen in this phase;
@@ -29,16 +34,19 @@ car.fhd training steps at the train reader's batch 8 through
      its plain version (max error, kernel and plain ms, two calls
      bitwise equal), and K1's forward and input gradient through the
      autograd Function against autograd through the plain version (max
-     error; kernel and plain ms of each);
+     error; kernel and plain ms of each; the forward bitwise equal to a
+     second call); for each, the skips, the TFLOP/s of the hits and both
+     bounds, as in phase 2;
   7. the training slice: the full-width train step on the card, 10
      steps on that batch (device ms, loss, lr, peak memory; losses
      finite and falling; K1 and K2 launched), a per-part breakdown of
      one step, and one step at batch 1 against the same step on the CPU
      with the plain kernels (loss and every gradient).
 
-Then one JSON line with the kernels (K1's ``ms``, ``plain_ms`` and bound
+Then one JSON line with the kernels (K1's ``ms``, ``plain_ms`` and bounds
 are sums over the inference frame's 10 sparse convs, K2's over the
-training batch's 10; K1's ``max_abs_err`` is its largest over phases 2
+training batch's 10; ``bound_ms`` is the fp32 bound and
+``bound_tf32x3_ms`` the 3xTF32 one; K1's ``max_abs_err`` is its largest over phases 2
 and 6; ``launches`` count the main paths' runs, phases 3
 and 7, with ``launches_by_path`` splitting them), and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for the whole run (the
@@ -111,9 +119,16 @@ TRAIN_BATCH = 8
 TRAIN_STEPS = 10
 
 # the card's published peaks (H100 SXM at 700 W): fp32 outside the
-# tensor cores and HBM bandwidth, for each kernel's least time
+# tensor cores, TF32 on them and HBM bandwidth, for each kernel's least
+# time
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+# K1 and K2 run each fp32 product as three TF32 products (3xTF32)
+TF32_PASSES = 3
+# rows of a K1 tile (TM, csrc/sparse_conv.cu) and of a K2 tile (TR,
+# csrc/sparse_conv_dw.cu)
+TILE_ROWS = 64
 # K3's arithmetic per box pair, counted in csrc/rotated_iou.cu's header
 K3_OPS_PER_PAIR = 400
 # K4: one compare and one select per (i, j > i) pair of the sweep
@@ -152,6 +167,37 @@ def bound_ms(nbytes, ops):
     t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / PEAK_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def tf32x3_bound_ms(nbytes, ops):
+    """The least time (ms) of the same work with every product run as
+    ``TF32_PASSES`` TF32 products on the tensor cores (165 TFLOP/s
+    effective): the bound of the instructions K1 and K2 use."""
+    return max(nbytes / PEAK_HBM_BYTES,
+               TF32_PASSES * ops / PEAK_TF32_FLOPS) * 1e3
+
+
+def tile_stats(slots, vin, flat=False):
+    """K1's (or, ``flat``, K2's: tiles over the B*Vout rows) skips on
+    these rulebooks, from the slots with plain torch on the device: the
+    64-row tiles with no hit at any offset (skipped as empty) and the
+    (tile, offset) pairs with a hit (the ones run), each with its total."""
+    b, vout, k = slots.shape
+    hit = (slots >= 0) & (slots < vin)
+    if flat:
+        hit, b, vout = hit.reshape(1, b * vout, k), 1, b * vout
+    pad = -vout % TILE_ROWS
+    if pad:
+        hit = torch.cat([hit, hit.new_zeros(b, pad, k)], 1)
+    pairs = hit.reshape(b, -1, TILE_ROWS, k).any(2)
+    return {"tiles": pairs.shape[0] * pairs.shape[1],
+            "empty": int((~pairs.any(-1)).sum()),
+            "pairs": int(pairs.sum()), "all_pairs": pairs.numel()}
+
+
+def skips(st):
+    return (f"tiles empty {st['empty']} of {st['tiles']}, (tile, offset) "
+            f"pairs run {st['pairs']} of {st['all_pairs']}")
 
 
 def gather_conv_bound(b, vin, cin, slots, cout, weight_grad):
@@ -228,7 +274,7 @@ def phase_kernels(ctx, device):
     net = ctx.parts["net"]
     mid = net.middle_feature_extractor
     g = torch.Generator().manual_seed(0)
-    errs, k_ms, p_ms, b_ms = [], 0.0, 0.0, {}
+    errs, k_ms, p_ms, b_ms, t_ms = [], 0.0, 0.0, {}, 0.0
     in_rows = conv_rows(example)
     for wname, pname, _ in SPARSE_CONVS:
         w = getattr(mid, wname).detach()
@@ -237,12 +283,16 @@ def phase_kernels(ctx, device):
         feat = torch.randn(1, in_rows[pname], cin, generator=g).to(device)
         cb, co = gather_conv_bound(1, in_rows[pname], cin, slots, cout, False)
         cms, cby = bound_ms(cb, co)
+        tms = tf32x3_bound_ms(cb, co)
         b_ms[cby] = b_ms.get(cby, 0.0) + cms
+        t_ms += tms
         out = cuda_sparse_conv.gather_gemm(feat, slots, w)
         ref = cuda_sparse_conv.gather_gemm_plain(feat, slots, w)
         err = (out - ref).abs().max().item()
         tol = K1_TOL * max(1.0, ref.abs().max().item())
         check(err <= tol, f"K1 {wname}: max err {err} > {tol}")
+        check(torch.equal(out, cuda_sparse_conv.gather_gemm(feat, slots, w)),
+              f"K1 {wname}: two calls differ")
         kms = cuda_ms(lambda: cuda_sparse_conv.gather_gemm(feat, slots, w))
         pms = cuda_ms(
             lambda: cuda_sparse_conv.gather_gemm_plain(feat, slots, w))
@@ -251,14 +301,19 @@ def phase_kernels(ctx, device):
         p_ms += pms
         log(f"K1 {wname}: rows {tuple(feat.shape[1:])} -> "
             f"{tuple(slots.shape[1:])} x {cout}, max err {err:.3e}, "
-            f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {cms:.4f} ms "
-            f"({cby}; {co / 1e9:.3f} GFLOP of hits, {cb / 1e6:.1f} MB)")
+            f"two calls bitwise equal, kernel {kms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound fp32 {cms:.4f} ms ({cby}) / 3xTF32 "
+            f"{tms:.4f} ms; {co / 1e9:.3f} GFLOP of hits at "
+            f"{co / kms / 1e9:.3f} TFLOP/s, {cb / 1e6:.1f} MB; "
+            f"{skips(tile_stats(slots, in_rows[pname]))}")
     results["sparse_conv_gather_gemm"] = {
         "max_abs_err": max(errs), "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": sum(b_ms.values()),
-        "bound_by": max(b_ms, key=b_ms.get), "library_ms": None}
+        "bound_by": max(b_ms, key=b_ms.get), "bound_tf32x3_ms": t_ms,
+        "library_ms": None}
     log(f"K1 frame total (10 convs): kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms, bound {sum(b_ms.values()):.4f} ms")
+        f"plain {p_ms:.4f} ms, bound fp32 {sum(b_ms.values()):.4f} ms / "
+        f"3xTF32 {t_ms:.4f} ms")
 
     rng = np.random.RandomState(1)
     centers = np.stack([rng.uniform(0, 70.4, 100), rng.uniform(-40, 40, 100)],
@@ -553,6 +608,9 @@ def phase_backward_kernels(net, batch, device):
 
         f = feat.clone().requires_grad_()
         out = SparseConvFunction.apply(f, w, slots, subm)
+        check(torch.equal(out.detach(),
+                          cuda_sparse_conv.gather_gemm(feat, slots, w)),
+              f"K1 forward {wname}: two calls differ")
         (dfeat,) = torch.autograd.grad((out * dout).sum(), f)
         fp = feat.clone().requires_grad_()
         out_p = cuda_sparse_conv.gather_gemm_plain(fp, slots, w)
@@ -593,32 +651,52 @@ def phase_backward_kernels(net, batch, device):
         cb, co = gather_conv_bound(b, vin, cin, slots, cout, True)
         cms, cby = bound_ms(cb, co)
         b_ms[cby] = b_ms.get(cby, 0.0) + cms
-        # K1's forward does the same hits' products as K2 on these inputs
-        fms, fby = bound_ms(*gather_conv_bound(b, vin, cin, slots, cout,
-                                               False))
-        sums["k1_bound"] = sums.get("k1_bound", 0.0) + fms
+        # K1's forward and input gradient do the same hits' products as K2
+        # on these inputs; the input gradient reads dout, writes [B, Vin, Cin]
+        fwd = gather_conv_bound(b, vin, cin, slots, cout, False)
+        dgr = gather_conv_bound(b, vout, cout, st, cin, False)
+        fms, fby = bound_ms(*fwd)
+        bounds = {"k2_bound": cms, "k2_bound_t": tf32x3_bound_ms(cb, co),
+                  "k1_bound": fms, "k1_bound_t": tf32x3_bound_ms(*fwd),
+                  "k1_dgrad_bound": bound_ms(*dgr)[0],
+                  "k1_dgrad_bound_t": tf32x3_bound_ms(*dgr)}
+        for key, v in bounds.items():
+            sums[key] = sums.get(key, 0.0) + v
+        tflops = {key: co / times[key] / 1e9
+                  for key in ("k2", "k1_fwd", "k1_dgrad")}
         log(f"K2 {wname}: [{b}, {vin}, {cin}] x [{b}, {vout}, {k}] x "
             f"[{b}, {vout}, {cout}], max err {err:.3e} (of "
             f"{ref.abs().max().item():.3e}), two calls bitwise equal, "
             f"kernel {times['k2']:.4f} ms, plain {times['k2_plain']:.4f} ms, "
-            f"bound {cms:.4f} ms ({cby}; {co / 1e9:.3f} GFLOP of hits); "
-            f"K1 forward max err {ferr:.3e}, input grad max err "
-            f"{derr:.3e}, K1 forward "
-            f"{times['k1_fwd']:.4f} ms (plain {times['k1_fwd_plain']:.4f}, "
-            f"bound {fms:.4f} ms, {fby}), K1 input grad "
-            f"{times['k1_dgrad']:.4f} ms (plain "
-            f"{times['k1_dgrad_plain']:.4f})")
+            f"bound fp32 {cms:.4f} ms ({cby}) / 3xTF32 "
+            f"{bounds['k2_bound_t']:.4f} ms; {co / 1e9:.3f} GFLOP of hits "
+            f"at {tflops['k2']:.3f} TFLOP/s; "
+            f"{skips(tile_stats(slots, vin, flat=True))}")
+        log(f"K1 {wname}: forward max err {ferr:.3e}, two calls bitwise "
+            f"equal, {times['k1_fwd']:.4f} ms (plain "
+            f"{times['k1_fwd_plain']:.4f}, bound fp32 {fms:.4f} ms ({fby}) / "
+            f"3xTF32 {bounds['k1_bound_t']:.4f}, {tflops['k1_fwd']:.3f} "
+            f"TFLOP/s; {skips(tile_stats(slots, vin))}); input grad max "
+            f"err {derr:.3e}, {times['k1_dgrad']:.4f} ms (plain "
+            f"{times['k1_dgrad_plain']:.4f}, bound fp32 "
+            f"{bounds['k1_dgrad_bound']:.4f} / 3xTF32 "
+            f"{bounds['k1_dgrad_bound_t']:.4f}, {tflops['k1_dgrad']:.3f} "
+            f"TFLOP/s; {skips(tile_stats(st, vout))})")
         del feat, dout, ref, dw, dw2
     torch.cuda.empty_cache()
     log(f"backward kernels, batch {b}, 10 convs: K2 {sums['k2']:.4f} ms "
-        f"(plain {sums['k2_plain']:.4f}, bound {sum(b_ms.values()):.4f}), "
-        f"K1 forward {sums['k1_fwd']:.4f} ms (plain "
-        f"{sums['k1_fwd_plain']:.4f}, bound {sums['k1_bound']:.4f}), K1 "
-        f"input grad {sums['k1_dgrad']:.4f} ms (plain "
-        f"{sums['k1_dgrad_plain']:.4f})")
+        f"(plain {sums['k2_plain']:.4f}, bound fp32 {sums['k2_bound']:.4f} / "
+        f"3xTF32 {sums['k2_bound_t']:.4f}), K1 forward "
+        f"{sums['k1_fwd']:.4f} ms (plain {sums['k1_fwd_plain']:.4f}, bound "
+        f"fp32 {sums['k1_bound']:.4f} / 3xTF32 {sums['k1_bound_t']:.4f}), "
+        f"K1 input grad {sums['k1_dgrad']:.4f} ms (plain "
+        f"{sums['k1_dgrad_plain']:.4f}, bound fp32 "
+        f"{sums['k1_dgrad_bound']:.4f} / 3xTF32 "
+        f"{sums['k1_dgrad_bound_t']:.4f})")
     return {"max_abs_err": max(errs), "ms": sums["k2"],
             "plain_ms": sums["k2_plain"], "bound_ms": sum(b_ms.values()),
             "bound_by": max(b_ms, key=b_ms.get),
+            "bound_tf32x3_ms": sums["k2_bound_t"],
             "library_ms": None}, max(k1_errs)
 
 

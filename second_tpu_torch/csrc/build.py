@@ -11,7 +11,8 @@ spills) of each build is kept beside the library as
 ``<name>.ptxas.log``.
 
 Same pattern as ``second_tpu/native/build.py`` (lazy build next to the
-sources, rebuilt when the source is newer than the library).
+sources, rebuilt when the source or a shared ``csrc/*.cuh`` header is
+newer than the library).
 """
 
 import ctypes
@@ -75,7 +76,9 @@ def load(name, extra_flags=()):
             return _libs[name]
         src = CSRC / f"{name}.cu"
         lib = BUILD_DIR / f"lib{name}.so"
-        if not lib.is_file() or lib.stat().st_mtime < src.stat().st_mtime:
+        newest = max(p.stat().st_mtime
+                     for p in (src, *CSRC.glob("*.cuh")))
+        if not lib.is_file() or lib.stat().st_mtime < newest:
             lib = _compile(name, tuple(extra_flags))
         cdll = ctypes.CDLL(str(lib))
         cdll.cuda_error_string.argtypes = [ctypes.c_int]

@@ -9,115 +9,287 @@
 //   out[b, o, :] = bias + sum_k feat[b, slots[b, o, k], :] @ W[k]
 //
 // A slot outside [0, vin) is a miss and reads a zero row (the JAX
-// package's dump row is slot == vin).
+// package's dump row is slot == vin). The same kernel serves the forward
+// and the input gradient (a mirrored or transposed rulebook).
 //
-// What bounds it on the card: the random row gathers. At car.fhd widths
-// (Cin, Cout <= 64) a row is 16-256 bytes and the GEMM work per gathered
-// byte is small, so the kernel is bound by gather latency, not by FLOPs.
-// Design: one block owns TM = 64 output rows and all Cout columns. It
-// stages the tile's [TM, K] slots in shared memory once, then for each
-// offset k gathers the TM input rows (coalesced along Cin) and W[k] into
-// shared memory and accumulates in fp32 registers, TM * Cout / 256 <= 16
-// outputs per thread. Rows of the tile that are padding still run
-// (their slots all miss); the caller masks them afterwards, as in JAX.
-// wgmma, TMA, cp.async pipelining and bf16 are later work.
+// What bounds it on the card. At car.fhd widths (Cin, Cout <= 64) a row
+// is 16-256 bytes and most rulebook entries miss: the static capacities
+// leave ~65% of the rows as padding, and a submanifold row hits ~1/3 of
+// its 27 offsets. So the design first skips what misses. What bounds it
+// then is the instruction stream that feeds the MMAs (fragment loads,
+// the 3xTF32 split, the barriers), not the gathers nor the tensor cores'
+// rate: without its products it runs in about half the time
+// (second_tpu_torch/tools/kernel_variants.py). Design:
+//   * One block owns TM = 64 output rows and all Cout columns (4 warps of
+//     16 rows). It stages the tile's [TM, K] slots once and votes
+//     (__syncthreads_or): a tile with no hit writes its rows as the bias
+//     (or zero) and returns. Active rows need not form a prefix.
+//   * It loops only over the offsets with at least one hit in the tile
+//     (a 64-bit mask from the staged slots, so K <= 64), and a warp skips
+//     the products of an offset where all of its 16 rows miss.
+//   * The gathers run through a ring of two shared-memory stages, each
+//     holding the tile's rows at one offset, filled with cp.async (16-byte
+//     copies, zero-filled with no read on a miss) while the tensor cores
+//     work on the other stage. W[k] comes from L2 into registers one
+//     offset ahead and is stored split into (hi, lo) pairs, so the four
+//     warps read their B fragments as float2 and none splits W again.
+//   * Products on the tensor cores at fp32 accuracy: mma.sync m16n8k8
+//     TF32 with the 3xTF32 split (gather_mma.cuh), fp32 accumulators in
+//     registers. One TF32 pass would miss the 1e-4 tolerance
+//     (tests/test_torch_kernels.py). Each offset's products go to a fresh
+//     accumulator, added to the running sum with a round-to-nearest
+//     FADD: the tensor cores' fp32 accumulation rounds toward zero and
+//     drifts when chained (K2's header). wgmma is not used: with N = Cout
+//     <= 64, mma.sync's rate is not the limit; a wgmma version reading
+//     both operands from shared memory would remove most of the feeding
+//     instructions, and is later work.
+//   * Cin and Cout are padded to the MMA widths (8, 16, 32, 64) in shared
+//     memory with zeros; shared-memory strides keep every fragment read
+//     free of bank conflicts.
+// No atomics; every output element is summed in a fixed order (offsets
+// ascending, then Cin), so two calls give bitwise-equal results.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gather_mma.cuh"
 
 namespace {
 
-constexpr int TM = 64;
-constexpr int THREADS = 256;
-constexpr int MAX_ACC = 16;  // TM * Cout / THREADS for Cout <= 64
+using namespace gather_mma;
 
+constexpr int TM = 64;
+constexpr int WARPS = 4;  // 16 rows each
+constexpr int THREADS = WARPS * 32;
+constexpr int STAGES = 2;  // gathered-row stages
+constexpr int HEADER_BYTES = 64;  // per-warp offset masks, 16-byte aligned
+
+template <int CIN_P, int COUT_P>
+struct Shape {
+  static constexpr int SA = CIN_P + 4;   // gathered rows [TM][SA]
+  static constexpr int SB = COUT_P + 4;  // W[k] split, float2 [CIN_P][SB]
+  static constexpr int STAGE = TM * SA;  // floats per stage
+  // float4 chunks of W[k] each thread loads
+  static constexpr int WV = (CIN_P * COUT_P / 4 + THREADS - 1) / THREADS;
+};
+
+inline int slot_bytes(int k) { return (TM * k * 4 + 15) / 16 * 16; }
+
+int block_smem_bytes(int k, int cin_p, int cout_p) {
+  return HEADER_BYTES + slot_bytes(k) +
+         (STAGES * TM * (cin_p + 4) + 2 * cin_p * (cout_p + 4)) *
+             static_cast<int>(sizeof(float));
+}
+
+template <int CIN_P, int COUT_P>
 __global__ void __launch_bounds__(THREADS)
 sparse_conv_kernel(const float* __restrict__ feat,
                    const int32_t* __restrict__ slots,
                    const float* __restrict__ weight,
                    const float* __restrict__ bias,
                    float* __restrict__ out,
-                   int vin, int vout, int k, int cin, int cout) {
-  extern __shared__ float smem[];
-  float* a_s = smem;                 // [TM, cin] gathered input rows
-  float* w_s = a_s + TM * cin;       // [cin, cout] weight of one offset
-  int32_t* slot_s = reinterpret_cast<int32_t*>(w_s + cin * cout);  // [TM, k]
+                   int vin, int vout, int k, int cin, int cout,
+                   int slot_bytes_k, bool a_vec, bool w_vec) {
+  using S = Shape<CIN_P, COUT_P>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* warp_mask = reinterpret_cast<uint64_t*>(smem);
+  int32_t* slot_s = reinterpret_cast<int32_t*>(smem + HEADER_BYTES);  // [TM, k]
+  float* stages =
+      reinterpret_cast<float*>(smem + HEADER_BYTES + slot_bytes_k);
+  float2* w2 = reinterpret_cast<float2*>(stages + STAGES * S::STAGE);
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * TM;
   const int rows = min(TM, vout - row0);
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const float* feat_b = feat + static_cast<size_t>(b) * vin * cin;
   const int32_t* slots_t =
       slots + (static_cast<size_t>(b) * vout + row0) * k;
+  float* out_t = out + (static_cast<size_t>(b) * vout + row0) * cout;
 
+  // the tile's slots (a miss as -1) and the offsets with a hit
+  uint64_t mask = 0;
   for (int i = tid; i < TM * k; i += THREADS) {
-    slot_s[i] = (i / k) < rows ? slots_t[i] : -1;
-  }
-
-  const int col = tid % cout;
-  const int rstep = THREADS / cout;
-  const int r_first = tid / cout;
-  const int nacc = TM / rstep;
-  float acc[MAX_ACC];
-#pragma unroll
-  for (int i = 0; i < MAX_ACC; ++i) acc[i] = 0.f;
-  __syncthreads();
-
-  for (int kk = 0; kk < k; ++kk) {
-    for (int i = tid; i < TM * cin; i += THREADS) {
-      const int r = i / cin;
-      const int c = i - r * cin;
-      const int s = slot_s[r * k + kk];
-      a_s[i] = (s >= 0 && s < vin) ? feat_b[static_cast<size_t>(s) * cin + c]
-                                   : 0.f;
+    const int r = i / k;
+    int s = r < rows ? slots_t[i] : -1;
+    if (s >= 0 && s < vin) {
+      mask |= 1ull << (i - r * k);
+    } else {
+      s = -1;
     }
-    const float* w_k = weight + static_cast<size_t>(kk) * cin * cout;
-    for (int i = tid; i < cin * cout; i += THREADS) w_s[i] = w_k[i];
-    __syncthreads();
-    for (int c = 0; c < cin; ++c) {
-      const float wv = w_s[c * cout + col];
+    slot_s[i] = s;
+  }
+  mask = warp_or(mask);
+  if (lane == 0) warp_mask[warp] = mask;
+  if (cin < CIN_P) {
+    // MMA padding of Cin: zeros that cp.async never overwrites
+    for (int i = tid; i < STAGES * S::STAGE; i += THREADS) stages[i] = 0.f;
+  }
+  if (cin < CIN_P || cout < COUT_P) {  // and of W's rows and columns
+    for (int i = tid; i < CIN_P * S::SB; i += THREADS)
+      w2[i] = make_float2(0.f, 0.f);
+  }
+  if (!__syncthreads_or(mask != 0)) {
+    // no slot of the tile hits: its rows are the bias (or zero)
+    for (int i = tid; i < rows * cout; i += THREADS)
+      out_t[i] = bias != nullptr ? bias[i % cout] : 0.f;
+    return;
+  }
+  mask = 0;
 #pragma unroll
-      for (int i = 0; i < MAX_ACC; ++i) {
-        if (i < nacc) acc[i] += a_s[(r_first + i * rstep) * cin + c] * wv;
+  for (int w = 0; w < WARPS; ++w) mask |= warp_mask[w];
+
+  // offset kk's rows into a stage (cp.async), and W[kk] into registers
+  float4 w_reg[S::WV];
+  const int w_chunks = cin * cout / 4;  // cout is a multiple of 4
+  auto load = [&](int stage, int kk) {
+    gather_rows_async(stages + stage * S::STAGE, S::SA, TM, cin, a_vec,
+                      feat_b, [&](int r) { return slot_s[r * k + kk]; }, tid,
+                      THREADS);
+    const float* w_k = weight + static_cast<size_t>(kk) * cin * cout;
+#pragma unroll
+    for (int v = 0; v < S::WV; ++v) {
+      const int c = tid + v * THREADS;
+      if (c >= w_chunks) continue;
+      w_reg[v] = w_vec ? reinterpret_cast<const float4*>(w_k)[c]
+                       : make_float4(w_k[4 * c], w_k[4 * c + 1],
+                                     w_k[4 * c + 2], w_k[4 * c + 3]);
+    }
+  };
+  // W[kk] from the registers into shared memory, split into (hi, lo)
+  // once for the block's warps
+  auto store_w = [&]() {
+#pragma unroll
+    for (int v = 0; v < S::WV; ++v) {
+      const int c = tid + v * THREADS;
+      if (c >= w_chunks) continue;
+      const int row = 4 * c / cout;
+      float2* dst = w2 + row * S::SB + (4 * c - row * cout);
+      const float x[4] = {w_reg[v].x, w_reg[v].y, w_reg[v].z, w_reg[v].w};
+      float h[4], l[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t hi, lo;
+        split_tf32(x[e], hi, lo);
+        h[e] = __uint_as_float(hi);
+        l[e] = __uint_as_float(lo);
+      }
+      reinterpret_cast<float4*>(dst)[0] = make_float4(h[0], l[0], h[1], l[1]);
+      reinterpret_cast<float4*>(dst)[1] = make_float4(h[2], l[2], h[3], l[3]);
+    }
+  };
+
+  float acc[COUT_P / 8][4];
+#pragma unroll
+  for (int j = 0; j < COUT_P / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_active = __popcll(mask);
+  uint64_t to_load = mask;
+  uint64_t to_run = mask;
+  load(0, pop_lowest(to_load));
+  cp_async_commit();
+  for (int it = 0; it < n_active; ++it) {
+    __syncthreads();  // the warps are done with stage it - 1 and with W
+    store_w();
+    if (to_load) load((it + 1) % STAGES, pop_lowest(to_load));
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // stage `it` landed, W[k] split in shared memory
+    const int kk = pop_lowest(to_run);
+    const bool hit = lane < 16 && slot_s[(warp * 16 + lane) * k + kk] >= 0;
+    if (!__any_sync(0xffffffffu, hit)) continue;  // this warp's rows all miss
+    const float* a_s = stages + (it % STAGES) * S::STAGE + warp * 16 * S::SA;
+
+    float part[COUT_P / 8][4];  // this offset's products, added below
+#pragma unroll
+    for (int j = 0; j < COUT_P / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+    for (int c0 = 0; c0 < CIN_P; c0 += 8) {
+      uint32_t a_hi[4], a_lo[4];
+      split_tf32(a_s[g * S::SA + c0 + t], a_hi[0], a_lo[0]);
+      split_tf32(a_s[(g + 8) * S::SA + c0 + t], a_hi[1], a_lo[1]);
+      split_tf32(a_s[g * S::SA + c0 + t + 4], a_hi[2], a_lo[2]);
+      split_tf32(a_s[(g + 8) * S::SA + c0 + t + 4], a_hi[3], a_lo[3]);
+#pragma unroll
+      for (int j = 0; j < COUT_P / 8; ++j) {
+        const float2 w0 = w2[(c0 + t) * S::SB + j * 8 + g];
+        const float2 w1 = w2[(c0 + t + 4) * S::SB + j * 8 + g];
+        const uint32_t b_hi[2] = {__float_as_uint(w0.x), __float_as_uint(w1.x)};
+        const uint32_t b_lo[2] = {__float_as_uint(w0.y), __float_as_uint(w1.y)};
+        mma_3xtf32(part[j], a_hi, a_lo, b_hi, b_lo);
       }
     }
-    __syncthreads();
-  }
-
-  const float bv = bias != nullptr ? bias[col] : 0.f;
-  float* out_t = out + (static_cast<size_t>(b) * vout + row0) * cout;
 #pragma unroll
-  for (int i = 0; i < MAX_ACC; ++i) {
-    const int r = r_first + i * rstep;
-    if (i < nacc && r < rows) out_t[static_cast<size_t>(r) * cout + col] = acc[i] + bv;
+    for (int j = 0; j < COUT_P / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
   }
+  cp_async_wait<0>();
+
+  const int r0 = warp * 16 + g;
+#pragma unroll
+  for (int j = 0; j < COUT_P / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (col >= cout) continue;
+    const float b0 = bias != nullptr ? bias[col] : 0.f;
+    const float b1 = bias != nullptr ? bias[col + 1] : 0.f;
+    if (r0 < rows)
+      *reinterpret_cast<float2*>(out_t + static_cast<size_t>(r0) * cout + col) =
+          make_float2(acc[j][0] + b0, acc[j][1] + b1);
+    if (r0 + 8 < rows)
+      *reinterpret_cast<float2*>(out_t + static_cast<size_t>(r0 + 8) * cout +
+                                 col) =
+          make_float2(acc[j][2] + b0, acc[j][3] + b1);
+  }
+}
+
+template <int CIN_P, int COUT_P>
+int launch(const float* feat, const int32_t* slots, const float* weight,
+           const float* bias, float* out, int batch, int vin, int vout, int k,
+           int cin, int cout, cudaStream_t stream) {
+  auto kernel = sparse_conv_kernel<CIN_P, COUT_P>;
+  const int smem = block_smem_bytes(k, CIN_P, COUT_P);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool a_vec =
+      cin % 4 == 0 && reinterpret_cast<uintptr_t>(feat) % 16 == 0;
+  const bool w_vec = reinterpret_cast<uintptr_t>(weight) % 16 == 0;
+  const dim3 grid((vout + TM - 1) / TM, batch);
+  kernel<<<grid, THREADS, smem, stream>>>(feat, slots, weight, bias, out, vin,
+                                          vout, k, cin, cout, slot_bytes(k),
+                                          a_vec, w_vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory bytes one block needs; the wrapper refuses shapes above
-// the 48 KB a block gets without opting in.
+// Shared memory bytes one block needs (the kernel opts in above 48 KB;
+// the wrapper refuses shapes above the 227 KB a block can have).
 int sparse_conv_smem_bytes(int k, int cin, int cout) {
-  return static_cast<int>(sizeof(float)) * (TM * cin + cin * cout) +
-         static_cast<int>(sizeof(int32_t)) * TM * k;
+  return block_smem_bytes(k, pad_width(cin), pad_width(cout));
 }
 
 // feat [batch, vin, cin], slots [batch, vout, k] int32, weight
 // [k, cin, cout], bias [cout] or null, out [batch, vout, cout]; all
-// contiguous fp32 on the device. cout must be a power of two <= 64.
-// Returns cudaGetLastError() after the launch.
+// contiguous fp32 on the device. cin <= 64, cout a power of two in
+// [4, 64], k <= 64. Returns the CUDA error code of the launch.
 int sparse_conv_launch(const float* feat, const int32_t* slots,
                        const float* weight, const float* bias, float* out,
                        int batch, int vin, int vout, int k, int cin,
                        int cout, cudaStream_t stream) {
-  const dim3 grid((vout + TM - 1) / TM, batch);
-  const size_t smem = static_cast<size_t>(sparse_conv_smem_bytes(k, cin, cout));
-  sparse_conv_kernel<<<grid, THREADS, smem, stream>>>(
-      feat, slots, weight, bias, out, vin, vout, k, cin, cout);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch_widths<8>(
+      pad_width(cin), pad_width(cout), [&](auto ci, auto co) {
+        return launch<decltype(ci)::value, decltype(co)::value>(
+            feat, slots, weight, bias, out, batch, vin, vout, k, cin, cout,
+            stream);
+      });
 }
 
 const char* cuda_error_string(int code) {

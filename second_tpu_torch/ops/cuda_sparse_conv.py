@@ -22,6 +22,11 @@ import torch
 KERNEL = "sparse_conv"
 launches = 0
 
+# a tile's offsets with a hit are one 64-bit mask in the kernel
+MAX_OFFSETS = 64
+# shared memory a block can opt in to on Hopper (232 448 bytes)
+MAX_SMEM_BYTES = 227 * 1024
+
 _lib = None
 
 
@@ -66,12 +71,33 @@ def gather_gemm_plain(feat, slots, weight, bias=None):
     return out
 
 
+def tf32_round(x):
+    """fp32 -> the nearest TF32 value (10-bit mantissa), ties away from
+    zero, on the int32 view: what ``cvt.rna.tf32.f32`` gives the kernels."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_3xtf32(a, b, passes=3):
+    """``a @ b`` (fp32) as the kernels form it on the tensor cores: each
+    operand split into hi = tf32(x) and lo = tf32(x - hi), then
+    lo*hi + hi*lo + hi*hi with fp32 sums (``passes=1``: hi*hi only, a
+    single TF32 pass). Products of TF32 values are exact in fp32. Used by
+    the tests to show why the kernels keep three passes; nothing on the
+    main path calls it."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
 def gather_gemm(feat, slots, weight, bias=None):
     """feat [B, Vin, Cin] f32, slots [B, Vout, K] int32, weight
     [K, Cin, Cout] f32, bias [Cout] or None -> [B, Vout, Cout] f32.
 
     CPU tensors take :func:`gather_gemm_plain`; CUDA tensors launch the
-    kernel (Cin <= 64, Cout a power of two in [4, 64]) or raise.
+    kernel (Cin <= 64, Cout a power of two in [4, 64], K <= 64) or raise.
     """
     global launches
     if feat.device.type == "cpu":
@@ -91,6 +117,9 @@ def gather_gemm(feat, slots, weight, bias=None):
     if not (1 <= cin <= 64 and 4 <= cout <= 64 and cout & (cout - 1) == 0):
         raise ValueError(f"gather_gemm: kernel takes Cin <= 64 and Cout a "
                          f"power of two in [4, 64], got {cin}, {cout}")
+    if k > MAX_OFFSETS:
+        raise ValueError(f"gather_gemm: kernel takes K <= {MAX_OFFSETS} "
+                         f"offsets, got {k}")
     tensors = [("feat", feat, torch.float32), ("slots", slots, torch.int32),
                ("weight", weight, torch.float32)]
     if bias is not None:
@@ -107,9 +136,9 @@ def gather_gemm(feat, slots, weight, bias=None):
     if b == 0 or vout == 0:
         return out
     lib = _load()
-    if lib.sparse_conv_smem_bytes(k, cin, cout) > 48 * 1024:
+    if lib.sparse_conv_smem_bytes(k, cin, cout) > MAX_SMEM_BYTES:
         raise ValueError(f"gather_gemm: K={k}, Cin={cin}, Cout={cout} needs "
-                         "more than 48 KB of shared memory")
+                         "more than the 227 KB of shared memory of a block")
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     code = lib.sparse_conv_launch(
         feat.data_ptr(), slots.data_ptr(), weight.data_ptr(),

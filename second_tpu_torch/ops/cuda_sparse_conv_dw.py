@@ -20,14 +20,16 @@ import ctypes
 
 import torch
 
-from .cuda_sparse_conv import gather_rows
+from .cuda_sparse_conv import MAX_SMEM_BYTES, gather_rows
 
 KERNEL = "sparse_conv_dw"
 launches = 0
 
-# row splits of the first launch: enough (offset, split) blocks to fill
-# the card, few enough that the [S, K, Cin, Cout] partials stay small
-MAX_SPLITS = 128
+# blocks of the first launch, (offset group, row split): sixteen per SM
+# of an H100, so that other blocks work while one restarts on its next
+# tile (fewer ran slower at car.fhd's batch-8 shapes), few enough that
+# the [S, K, Cin, Cout] partials stay under ~70 MB
+TARGET_BLOCKS = 16 * 132
 TILE_ROWS = 64
 
 _lib = None
@@ -45,6 +47,8 @@ def _load():
         lib.sparse_conv_dw_launch.restype = i
         lib.sparse_conv_dw_smem_bytes.argtypes = [i, i]
         lib.sparse_conv_dw_smem_bytes.restype = i
+        lib.sparse_conv_dw_groups.argtypes = [i, i, i]
+        lib.sparse_conv_dw_groups.restype = i
         _lib = lib
     return _lib
 
@@ -60,11 +64,13 @@ def sparse_conv_dw_plain(feat, slots, dout):
     return dw.reshape(k, cin, cout)
 
 
-def splits_for(rows):
+def splits_for(rows, groups):
     """(splits, rows per split) of the first launch for ``rows`` = B*Vout
-    rule rows: whole 64-row tiles, at most ``MAX_SPLITS`` splits."""
+    rule rows and ``groups`` offset groups: whole 64-row tiles, about
+    ``TARGET_BLOCKS`` blocks in all."""
     tiles = max(-(-rows // TILE_ROWS), 1)
-    per = -(-tiles // min(MAX_SPLITS, tiles)) * TILE_ROWS
+    want = min(tiles, max(TARGET_BLOCKS // groups, 1))
+    per = -(-tiles // want) * TILE_ROWS
     return max(-(-rows // per), 1), per
 
 
@@ -107,10 +113,10 @@ def sparse_conv_dw(feat, slots, dout):
         return torch.zeros((k, cin, cout), dtype=torch.float32,
                            device=feat.device)
     lib = _load()
-    if lib.sparse_conv_dw_smem_bytes(cin, cout) > 48 * 1024:
+    if lib.sparse_conv_dw_smem_bytes(cin, cout) > MAX_SMEM_BYTES:
         raise ValueError(f"sparse_conv_dw: Cin={cin}, Cout={cout} needs more "
-                         "than 48 KB of shared memory")
-    splits, per = splits_for(b * vout)
+                         "than the 227 KB of shared memory of a block")
+    splits, per = splits_for(b * vout, lib.sparse_conv_dw_groups(k, cin, cout))
     partial = torch.empty((splits, k, cin, cout), dtype=torch.float32,
                           device=feat.device)
     dw = torch.empty((k, cin, cout), dtype=torch.float32, device=feat.device)

@@ -7,7 +7,9 @@ This file imports no JAX, so it runs on a GPU machine without it
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1 1e-4 (fp32 sums of K*Cin products in another order); K2
+Tolerances: K1 1e-4 (fp32 sums of K*Cin products in another order, as
+3xTF32 products on the tensor cores), and bitwise equal across two
+calls; rows that miss at every offset exactly the bias or zero; K2
 1e-5 of the largest magnitude (fp32 sums over every rule row in another
 order), and bitwise equal across two calls; K3 1e-5 against the plain
 version on the card (fp32 rounding of the same arithmetic); K4 exact (a
@@ -25,6 +27,7 @@ from second_tpu_torch.ops import (
     cuda_sparse_conv,
     cuda_sparse_conv_dw,
 )
+from second_tpu_torch.ops import sparse as tsparse
 
 
 def _random_boxes(rng, n, spread=10.0):
@@ -70,6 +73,121 @@ def test_k1_cuda_matches_plain(cuda_device, cin, cout, k, vin, vout):
     torch.cuda.synchronize()
     assert cuda_sparse_conv.launches == before + 1
     torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+def _rulebook(g, b, vin, vout, k, hit_share):
+    """Random slots [b, vout, k]: about ``hit_share`` hits, the rest the
+    planner's miss (slot == vin)."""
+    slots = torch.randint(0, int(vin / hit_share), (b, vout, k), generator=g)
+    return torch.where(slots < vin, slots, vin).to(torch.int32)
+
+
+# every (Cin, Cout) that K1 meets in car.fhd: the forwards of the 10
+# sparse convs (4->16 first) and the input gradients (Cout -> Cin)
+CAR_FHD_K1_WIDTHS = [(4, 16), (16, 16), (16, 32), (32, 16), (32, 32),
+                     (32, 64), (64, 32), (64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bias", [True, False])
+@pytest.mark.parametrize("cin,cout", CAR_FHD_K1_WIDTHS)
+def test_k1_cuda_car_fhd_widths(cuda_device, cin, cout, use_bias):
+    """Each width against the plain version, with the second half of the
+    rows missing at every offset (capacity padding): those rows are
+    exactly the bias, or zero. Vout is no multiple of the 64-row tile,
+    and two calls are bitwise equal."""
+    g = torch.Generator().manual_seed(cin * 100 + cout)
+    b, k, vin, vout = 2, 27, 5000, 6001
+    feat = torch.randn(b, vin, cin, generator=g)
+    slots = _rulebook(g, b, vin, vout, k, 0.4)
+    slots[:, vout // 2:] = vin
+    w = torch.randn(k, cin, cout, generator=g) * (k * cin) ** -0.5
+    bias = torch.randn(cout, generator=g) if use_bias else None
+    ref = cuda_sparse_conv.gather_gemm_plain(feat, slots, w, bias)
+    dev = [t.to(cuda_device) if t is not None else None
+           for t in (feat, slots, w, bias)]
+    out = cuda_sparse_conv.gather_gemm(*dev)
+    out2 = cuda_sparse_conv.gather_gemm(*dev)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    out = out.cpu()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    pad = out[:, vout // 2:]
+    if use_bias:
+        assert torch.equal(pad, bias.expand_as(pad))
+    else:
+        assert torch.equal(pad, torch.zeros_like(pad))
+
+
+@pytest.mark.cuda
+def test_k1_cuda_transposed_rulebook(cuda_device):
+    """The strided input gradient's rulebook (``transpose_rulebook`` over
+    the input capacity, hits scattered with no prefix of active rows)."""
+    g = torch.Generator().manual_seed(5)
+    b, k, vin, vout, cin, cout = 2, 27, 9000, 4000, 32, 64
+    # a strided conv's rulebook: at each offset a third of the outputs
+    # read distinct inputs, drawn from the first two thirds of the rows
+    slots = torch.full((b, vout, k), vin, dtype=torch.int32)
+    for bi in range(b):
+        for kk in range(k):
+            outs = torch.randperm(vout, generator=g)[:vout // 3]
+            ins = torch.randperm(vin * 2 // 3, generator=g)[:vout // 3]
+            slots[bi, outs, kk] = ins.to(torch.int32)
+    slots_t = tsparse.transpose_rulebook(slots, vin)
+    dout = torch.randn(b, vout, cout, generator=g)
+    w_t = (torch.randn(k, cin, cout, generator=g) * 0.05).transpose(
+        1, 2).contiguous()
+    ref = cuda_sparse_conv.gather_gemm_plain(dout, slots_t, w_t)
+    out = cuda_sparse_conv.gather_gemm(
+        dout.to(cuda_device), slots_t.to(cuda_device), w_t.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (ref.abs().sum(-1) == 0).any()  # rows no output reads
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k1_cuda_single_hit(cuda_device):
+    """One tile with a single hit at a single offset, the others empty:
+    that row is feat[slot] @ W[k] + bias, the rest exactly the bias."""
+    g = torch.Generator().manual_seed(6)
+    b, k, vin, vout, cin, cout = 1, 27, 300, 200, 16, 32
+    feat = torch.randn(b, vin, cin, generator=g)
+    w = torch.randn(k, cin, cout, generator=g)
+    bias = torch.randn(cout, generator=g)
+    slots = torch.full((b, vout, k), vin, dtype=torch.int32)
+    slots[0, 70, 13] = 123
+    out = cuda_sparse_conv.gather_gemm(
+        *(t.to(cuda_device) for t in (feat, slots, w, bias))).cpu()
+    ref = cuda_sparse_conv.gather_gemm_plain(feat, slots, w, bias)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    others = torch.ones(vout, dtype=torch.bool)
+    others[70] = False
+    assert torch.equal(out[0, others], bias.expand(vout - 1, cout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(4, 16), (16, 16), (16, 32), (32, 32),
+                                      (32, 64), (64, 64)])
+def test_k2_cuda_car_fhd_widths(cuda_device, cin, cout):
+    """K2 at every car.fhd (Cin, Cout), B * Vout no multiple of the tile,
+    half the rows padding, and one offset with a single hit."""
+    g = torch.Generator().manual_seed(cin * 100 + cout + 1)
+    b, k, vin, vout = 3, 27, 4000, 5001
+    feat = torch.randn(b, vin, cin, generator=g)
+    slots = _rulebook(g, b, vin, vout, k, 0.4)
+    slots[:, vout // 2:] = vin
+    slots[..., 5] = vin
+    slots[1, 17, 5] = 99
+    dout = torch.randn(b, vout, cout, generator=g)
+    dev = [t.to(cuda_device) for t in (feat, slots, dout)]
+    ref = cuda_sparse_conv_dw.sparse_conv_dw_plain(*dev)
+    dw = cuda_sparse_conv_dw.sparse_conv_dw(*dev)
+    dw2 = cuda_sparse_conv_dw.sparse_conv_dw(*dev)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dw2)
+    torch.testing.assert_close(dw, ref, rtol=0,
+                               atol=1e-5 * ref.abs().max().item())
+    torch.testing.assert_close(dw[5], ref[5], rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -149,6 +149,47 @@ def test_k1_miss_slots_read_zero():
     np.testing.assert_array_equal(out[0, 1].numpy(), np.zeros(8))
 
 
+def test_tf32_round_is_round_to_nearest():
+    """``tf32_round`` keeps 10 mantissa bits, rounds to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``."""
+    rng = np.random.RandomState(8)
+    x = (rng.randn(10000) * 10.0 ** rng.uniform(-8, 8, 10000)).astype(
+        np.float32)
+    r = cuda_sparse_conv.tf32_round(torch.from_numpy(x)).numpy()
+    assert (r.view(np.int32) & 0x1FFF == 0).all()
+    rel = np.abs(r.astype(np.float64) - x) / np.abs(x)
+    assert rel.max() <= 2.0 ** -11
+    ties = np.array([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                     1.0 + 2.0 ** -12], np.float32)
+    np.testing.assert_array_equal(
+        cuda_sparse_conv.tf32_round(torch.from_numpy(ties)).numpy(),
+        np.array([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0], np.float32))
+
+
+@pytest.mark.parametrize("k,cin,cout", [(27, 4, 16), (27, 64, 64)])
+def test_k1_3xtf32_meets_tolerance_one_pass_does_not(k, cin, cout):
+    """Why K1 and K2 run three TF32 passes: at car.fhd's depths K*Cin =
+    108 and 1728, with features ~ N(0, 1) and weights of variance
+    1/(K*Cin) (the smoke's scales), the 3xTF32 sum stays within K1's 1e-4
+    of the largest magnitude of an fp64 reference, and one TF32 pass is
+    at least ten times further off."""
+    rng = np.random.RandomState(9)
+    a = rng.randn(4096, k * cin).astype(np.float32)
+    w = (rng.randn(k * cin, cout) * (k * cin) ** -0.5).astype(np.float32)
+    ref = a.astype(np.float64) @ w.astype(np.float64)
+    at, wt = torch.from_numpy(a), torch.from_numpy(w)
+    err3 = np.abs(cuda_sparse_conv.matmul_3xtf32(at, wt).double().numpy()
+                  - ref).max()
+    err1 = np.abs(cuda_sparse_conv.matmul_3xtf32(at, wt, passes=1)
+                  .double().numpy() - ref).max()
+    tol = 1e-4 * max(1.0, np.abs(ref).max())
+    print(f"K*Cin = {k * cin}: 3xTF32 max err {err3:.3e}, one TF32 pass "
+          f"{err1:.3e}, K1 tolerance {tol:.3e}: one pass "
+          f"{'misses' if err1 > tol else 'meets'} it")
+    assert err3 <= tol
+    assert err1 >= 10 * err3
+
+
 # --------------------------------------------------------------- K3
 
 
