@@ -14,7 +14,12 @@ car.fhd training steps at the train reader's batch 8 through
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it (K1 on the rulebooks of a
      ``make_kitti_scene`` frame, K3 at [1000, 5] x [1000, 5], K4 at
-     n = 1000): max error, kernel ms and plain ms (CUDA events); for
+     n = 1000, on ``tools.nms_profile.clustered_boxes``): max error,
+     kernel ms and plain ms (CUDA events around back-to-back wrapper
+     calls), and the kernel's device-only ms (20 calls captured in a
+     CUDA graph, replayed between CUDA events); K3's share of pairs that
+     survive its far-pair reject (exactly 0.0 on the others) and its
+     bound counted from that share, K4's time per candidate step; for
      each K1 conv also two calls bitwise equal, the 64-row tiles it
      skips as empty and the (tile, offset) pairs it runs (counted from
      the slots with plain torch), the TFLOP/s of the hits, and two
@@ -26,7 +31,8 @@ car.fhd training steps at the train reader's batch 8 through
   4. correctness: frame 0 again with the network on the CPU (the plain
      versions) -> preds agree, detections agree, NMS fed the same preds
      on both devices agrees, and the CPU's NMS candidates run through
-     K3 and K4 on the card keep exactly the CPU's boxes;
+     K3 and K4 on the card keep exactly the CPU's boxes (with K3's
+     share of surviving pairs on those candidates);
   5. a per-stage breakdown of frame 0 on the card;
   6. the backward kernels at the training shapes, on the rulebooks of a
      batch of 8 ``make_kitti_scene`` frames prepared by the train reader
@@ -43,7 +49,8 @@ car.fhd training steps at the train reader's batch 8 through
      one step, and one step at batch 1 against the same step on the CPU
      with the plain kernels (loss and every gradient).
 
-Then one JSON line with the kernels (K1's ``ms``, ``plain_ms`` and bounds
+Then one JSON line with the kernels (``ms`` times the wrapper,
+``device_ms`` the card alone; K1's times and bounds
 are sums over the inference frame's 10 sparse convs, K2's over the
 training batch's 10; ``bound_ms`` is the fp32 bound and
 ``bound_tf32x3_ms`` the 3xTF32 one; K1's ``max_abs_err`` is its largest over phases 2
@@ -81,6 +88,7 @@ from second_tpu_torch.ops import (
     cuda_sparse_conv_dw,
 )
 from second_tpu_torch.ops.sparse import SparseConvFunction, transpose_rulebook
+from second_tpu_torch.tools.nms_profile import clustered_boxes
 from second_tpu_torch.train import optimizer as opt_builder
 from second_tpu_torch.train.state import forward_loss, make_train_step
 
@@ -129,8 +137,12 @@ TF32_PASSES = 3
 # rows of a K1 tile (TM, csrc/sparse_conv.cu) and of a K2 tile (TR,
 # csrc/sparse_conv_dw.cu)
 TILE_ROWS = 64
-# K3's arithmetic per box pair, counted in csrc/rotated_iou.cu's header
+# K3's arithmetic per box pair that runs the clipping (csrc/rotated_iou.cu's
+# header), and per pair its far-pair reject takes: 2 subtractions, an
+# add and a multiply for the reach, 3 operations for the squared
+# distance, a square, a compare and 2 ands
 K3_OPS_PER_PAIR = 400
+K3_REJECT_OPS_PER_PAIR = 10
 # K4: one compare and one select per (i, j > i) pair of the sweep
 K4_OPS_PER_PAIR = 2
 
@@ -244,6 +256,32 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=20, replays=5):
+    """Device-only ms of one call of ``fn``: ``iters`` calls captured in
+    a CUDA graph, replayed ``replays`` times between CUDA events, so no
+    host work of the wrapper lies inside the timing."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
@@ -274,7 +312,7 @@ def phase_kernels(ctx, device):
     net = ctx.parts["net"]
     mid = net.middle_feature_extractor
     g = torch.Generator().manual_seed(0)
-    errs, k_ms, p_ms, b_ms, t_ms = [], 0.0, 0.0, {}, 0.0
+    errs, k_ms, d_ms, p_ms, b_ms, t_ms = [], 0.0, 0.0, 0.0, {}, 0.0
     in_rows = conv_rows(example)
     for wname, pname, _ in SPARSE_CONVS:
         w = getattr(mid, wname).detach()
@@ -294,66 +332,85 @@ def phase_kernels(ctx, device):
         check(torch.equal(out, cuda_sparse_conv.gather_gemm(feat, slots, w)),
               f"K1 {wname}: two calls differ")
         kms = cuda_ms(lambda: cuda_sparse_conv.gather_gemm(feat, slots, w))
+        dms = graph_ms(lambda: cuda_sparse_conv.gather_gemm(feat, slots, w))
         pms = cuda_ms(
             lambda: cuda_sparse_conv.gather_gemm_plain(feat, slots, w))
         errs.append(err)
         k_ms += kms
+        d_ms += dms
         p_ms += pms
         log(f"K1 {wname}: rows {tuple(feat.shape[1:])} -> "
             f"{tuple(slots.shape[1:])} x {cout}, max err {err:.3e}, "
-            f"two calls bitwise equal, kernel {kms:.4f} ms, plain "
+            f"two calls bitwise equal, kernel {kms:.4f} ms (device "
+            f"{dms:.4f}), plain "
             f"{pms:.4f} ms, bound fp32 {cms:.4f} ms ({cby}) / 3xTF32 "
             f"{tms:.4f} ms; {co / 1e9:.3f} GFLOP of hits at "
             f"{co / kms / 1e9:.3f} TFLOP/s, {cb / 1e6:.1f} MB; "
             f"{skips(tile_stats(slots, in_rows[pname]))}")
     results["sparse_conv_gather_gemm"] = {
-        "max_abs_err": max(errs), "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": sum(b_ms.values()),
+        "max_abs_err": max(errs), "ms": k_ms, "device_ms": d_ms,
+        "plain_ms": p_ms, "bound_ms": sum(b_ms.values()),
         "bound_by": max(b_ms, key=b_ms.get), "bound_tf32x3_ms": t_ms,
         "library_ms": None}
-    log(f"K1 frame total (10 convs): kernel {k_ms:.4f} ms, "
+    log(f"K1 frame total (10 convs): kernel {k_ms:.4f} ms (device "
+        f"{d_ms:.4f}), "
         f"plain {p_ms:.4f} ms, bound fp32 {sum(b_ms.values()):.4f} ms / "
         f"3xTF32 {t_ms:.4f} ms")
 
-    rng = np.random.RandomState(1)
-    centers = np.stack([rng.uniform(0, 70.4, 100), rng.uniform(-40, 40, 100)],
-                       1).repeat(10, 0) + rng.normal(0, 1.0, (1000, 2))
-    boxes = np.concatenate([
-        centers, rng.normal([1.6, 3.9], 0.1, (1000, 2)),
-        rng.uniform(-np.pi, np.pi, (1000, 1))], 1).astype(np.float32)
-    boxes = torch.from_numpy(boxes).to(device)
+    boxes, valid, _ = clustered_boxes(device)
     iou = cuda_iou.rotated_iou_matrix(boxes, boxes)
     ref = cuda_iou.rotated_iou_matrix_plain(boxes, boxes)
     err = (iou - ref).abs().max().item()
     check(err <= K3_TOL, f"K3: max err {err} > {K3_TOL}")
+    far = cuda_iou.far_pairs(boxes, boxes)
+    check(torch.equal(iou[far], torch.zeros_like(iou[far])),
+          "K3: a rejected pair is not exactly 0.0")
+    check(torch.equal(iou, cuda_iou.rotated_iou_matrix(boxes, boxes)),
+          "K3: two calls differ")
     kms = cuda_ms(lambda: cuda_iou.rotated_iou_matrix(boxes, boxes))
+    dms = graph_ms(lambda: cuda_iou.rotated_iou_matrix(boxes, boxes))
     pms = cuda_ms(lambda: cuda_iou.rotated_iou_matrix_plain(boxes, boxes))
     n = boxes.shape[0]
-    k3_bound, k3_by = bound_ms(4 * (2 * n * 5 + n * n),
-                               K3_OPS_PER_PAIR * n * n)
+    rejected = int(far.sum())
+    k3_bytes = 4 * (2 * n * 5 + n * n)
+    k3_bound, k3_by = bound_ms(
+        k3_bytes, K3_REJECT_OPS_PER_PAIR * rejected
+        + K3_OPS_PER_PAIR * (n * n - rejected))
+    k3_every, _ = bound_ms(k3_bytes, K3_OPS_PER_PAIR * n * n)
     results["rotated_iou"] = {
-        "max_abs_err": err, "ms": kms, "plain_ms": pms,
-        "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None}
-    log(f"K3 [1000,5]x[1000,5]: max err {err:.3e}, kernel {kms:.4f} ms, "
-        f"plain {pms:.4f} ms, pairs overlapping "
-        f"{(ref > 0).float().mean().item():.4f}")
+        "max_abs_err": err, "ms": kms, "device_ms": dms, "plain_ms": pms,
+        "bound_ms": k3_bound, "bound_by": k3_by,
+        "bound_every_pair_clipped_ms": k3_every, "library_ms": None}
+    log(f"K3 [1000,5]x[1000,5]: max err {err:.3e}, rejected pairs exactly "
+        f"0.0, two calls bitwise equal, kernel {kms:.4f} ms (device "
+        f"{dms:.4f}), plain {pms:.4f} ms, pairs overlapping "
+        f"{(ref > 0).float().mean().item():.4f}, pairs surviving the "
+        f"reject {1 - rejected / (n * n):.4f}; bound {k3_bound:.5f} ms "
+        f"({k3_by}) for this run's survivors, {k3_every:.5f} ms had every "
+        f"pair been clipped")
 
-    valid = torch.from_numpy(rng.uniform(size=1000) < 0.9).to(device)
     keep = cuda_nms.greedy_suppress(ref, valid, 0.01)
     keep_ref = cuda_nms.greedy_suppress_plain(ref, valid, 0.01)
     mismatches = int((keep != keep_ref).sum().item())
     check(mismatches == 0, f"K4: {mismatches} keep flags differ")
+    check(torch.equal(keep, cuda_nms.greedy_suppress(ref, valid, 0.01)),
+          "K4: two calls differ")
     kms = cuda_ms(lambda: cuda_nms.greedy_suppress(ref, valid, 0.01))
+    dms = graph_ms(lambda: cuda_nms.greedy_suppress(ref, valid, 0.01))
     pms = cuda_ms(lambda: cuda_nms.greedy_suppress_plain(ref, valid, 0.01),
                   iters=3, warmup=1)
     k4_bound, k4_by = bound_ms(4 * n * n + 2 * n,
                                K4_OPS_PER_PAIR * n * (n - 1) // 2)
     results["greedy_nms"] = {
-        "max_abs_err": 0.0, "ms": kms, "plain_ms": pms,
+        "max_abs_err": 0.0, "ms": kms, "device_ms": dms, "plain_ms": pms,
         "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None}
-    log(f"K4 n=1000: keep mismatches 0 (kept {int(keep.sum())}), "
-        f"kernel {kms:.4f} ms, plain {pms:.4f} ms, bound {k4_bound:.5f} ms "
-        f"({k4_by}); K3 bound {k3_bound:.5f} ms ({k3_by})")
+    # n dependent decisions: the bound of the bytes is out of reach of a
+    # chain whose every step waits for the last
+    log(f"K4 n=1000: keep mismatches 0 (kept {int(keep.sum())}), two "
+        f"calls bitwise equal, kernel {kms:.4f} ms (device {dms:.4f}: "
+        f"{dms / n * 1e6:.2f} ns per candidate step of the chain), plain "
+        f"{pms:.4f} ms, bound {k4_bound:.5f} ms ({k4_by}; "
+        f"{k4_bound / n * 1e6:.3f} ns per step)")
     return results
 
 
@@ -460,6 +517,11 @@ def _nms_disagreement(spec, preds, anchors, device):
     # the same candidates in the same order through K3 and K4 on the card
     cand = cpu["cand"].to(device)
     iou = cuda_iou.rotated_iou_matrix(cand, cand)
+    far = cuda_iou.far_pairs(cand, cand)
+    check(torch.equal(iou[far], torch.zeros_like(iou[far])),
+          "K3 on frame 0's candidates: a rejected pair is not exactly 0.0")
+    log(f"reference: frame 0's {len(cand)} NMS candidates: pairs surviving "
+        f"K3's far-pair reject {1 - far.float().mean().item():.4f}")
     keep = cuda_nms.greedy_suppress(iou, cpu["valid"].to(device), thr).cpu()
     iou = iou.cpu()
     both = cpu["valid"][:, None] & cpu["valid"][None, :]
@@ -634,6 +696,8 @@ def phase_backward_kernels(net, batch, device):
         times = {
             "k2": cuda_ms(lambda: cuda_sparse_conv_dw.sparse_conv_dw(
                 feat, slots, dout), iters=10, warmup=2),
+            "k2_device": graph_ms(lambda: cuda_sparse_conv_dw.sparse_conv_dw(
+                feat, slots, dout), iters=5, replays=2),
             "k2_plain": cuda_ms(lambda: cuda_sparse_conv_dw.sparse_conv_dw_plain(
                 feat, slots, dout), iters=5, warmup=1),
             "k1_fwd": cuda_ms(lambda: cuda_sparse_conv.gather_gemm(
@@ -667,7 +731,8 @@ def phase_backward_kernels(net, batch, device):
         log(f"K2 {wname}: [{b}, {vin}, {cin}] x [{b}, {vout}, {k}] x "
             f"[{b}, {vout}, {cout}], max err {err:.3e} (of "
             f"{ref.abs().max().item():.3e}), two calls bitwise equal, "
-            f"kernel {times['k2']:.4f} ms, plain {times['k2_plain']:.4f} ms, "
+            f"kernel {times['k2']:.4f} ms (device {times['k2_device']:.4f}), "
+            f"plain {times['k2_plain']:.4f} ms, "
             f"bound fp32 {cms:.4f} ms ({cby}) / 3xTF32 "
             f"{bounds['k2_bound_t']:.4f} ms; {co / 1e9:.3f} GFLOP of hits "
             f"at {tflops['k2']:.3f} TFLOP/s; "
@@ -685,7 +750,8 @@ def phase_backward_kernels(net, batch, device):
         del feat, dout, ref, dw, dw2
     torch.cuda.empty_cache()
     log(f"backward kernels, batch {b}, 10 convs: K2 {sums['k2']:.4f} ms "
-        f"(plain {sums['k2_plain']:.4f}, bound fp32 {sums['k2_bound']:.4f} / "
+        f"(device {sums['k2_device']:.4f}, plain {sums['k2_plain']:.4f}, "
+        f"bound fp32 {sums['k2_bound']:.4f} / "
         f"3xTF32 {sums['k2_bound_t']:.4f}), K1 forward "
         f"{sums['k1_fwd']:.4f} ms (plain {sums['k1_fwd_plain']:.4f}, bound "
         f"fp32 {sums['k1_bound']:.4f} / 3xTF32 {sums['k1_bound_t']:.4f}), "
@@ -694,6 +760,7 @@ def phase_backward_kernels(net, batch, device):
         f"{sums['k1_dgrad_bound']:.4f} / 3xTF32 "
         f"{sums['k1_dgrad_bound_t']:.4f})")
     return {"max_abs_err": max(errs), "ms": sums["k2"],
+            "device_ms": sums["k2_device"],
             "plain_ms": sums["k2_plain"], "bound_ms": sum(b_ms.values()),
             "bound_by": max(b_ms, key=b_ms.get),
             "bound_tf32x3_ms": sums["k2_bound_t"],

@@ -7,8 +7,7 @@
 // other box (Liang-Barsky), with no sort. An edge exactly on a clip
 // plane is kept by the first box only when both run the same way
 // (identical boxes count once), and by both when they run opposite ways
-// (touching boxes cancel). A union <= 0 divides by 1, so degenerate
-// boxes give IoU 0.
+// (touching boxes cancel). A union <= 0 divides by 1.
 //
 // One change of frame: each pair is computed relative to the centre of
 // its first box. The Pallas kernel works in scene coordinates, where at
@@ -17,22 +16,45 @@
 // decisions at car.fhd's 0.01 threshold; centred, the terms stay at the
 // boxes' own size.
 //
-// What bounds it on the card: arithmetic, about 400 flops and two
-// divisions per pair against 4 bytes written; at N = M = 1000 (the NMS
-// candidates) that is 0.4 GFLOP, a few microseconds of the SMs.
-// Design: one thread per (i, j) pair in 8 x 32 tiles. The centred
-// corners and outward half-planes of the tile's 8 + 32 boxes are
-// computed once per block into shared memory (23 floats a box), so a
-// pair costs a shift of the second box and the two clipping passes.
+// What bounds it on the card: arithmetic, and only for the pairs that
+// can overlap. The clipping costs about 400 operations and 32 IEEE
+// divisions (subroutines of several instructions each) per pair, yet
+// NMS candidates spread over a 70 x 80 m scene are mostly far apart and
+// their IoU is exactly 0. A tile is 32 rows strided by the grid's
+// height (rows y, y + G, ...) by 32 consecutive columns: boxes close in
+// rank and in space (near-tied scores keep anchor order) then spread
+// their overlapping pairs over many tiles instead of piling them into
+// the diagonal ones, while each warp still writes 32 consecutive
+// floats. Three steps per tile (256 threads, 4 pairs each):
+//   1. the centred corners, outward half-planes, area and circumradius
+//      of the tile's 32 + 32 boxes, once each, into shared memory;
+//   2. `far_pair`: a pair whose centres lie farther apart than the sum
+//      of the circumradii (with a relative margin of 2^-10, far beyond
+//      fp32 rounding) writes 0.0; the Python twin
+//      `ops/cuda_iou.far_pairs` holds the same arithmetic, and the CPU
+//      tests check that the full arithmetic gives exactly 0.0 on every
+//      pair it rejects. Boxes with a side under 2^-10 are never
+//      rejected: a box of zero size has only trivial half-planes and
+//      scores IoU = area of the other box wherever it lies;
+//   3. the survivors are compacted into a list in shared memory (one
+//      ballot and one shared atomic per warp) and the threads take
+//      them from the list, so whole warps run `pair_iou` together
+//      instead of diverging pair by pair. The list's order
+//      varies from run to run; the values do not, since each pair is
+//      computed alone by the same code.
 // Built with -fmad=false: the boundary rules test products for exact
-// zero, which a fused multiply-add would break.
+// zero, which a fused multiply-add would break, and `far_pair` must
+// round as its Python twin does.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TJ = 32;  // boxes2 per tile (threadIdx.x)
-constexpr int TI = 8;   // boxes1 per tile (threadIdx.y)
+constexpr int TILE = 32;                    // boxes per side of a tile
+constexpr int THREADS = 256;
+constexpr int PAIRS_PER_THREAD = TILE * TILE / THREADS;
+constexpr float FAR_SCALE = 1.0f + 0x1p-10f;  // as ops/cuda_iou.py
+constexpr float SIZE_MIN = 0x1p-10f;
 
 // One box in its own frame: corners and outward half-planes relative
 // to its centre.
@@ -41,6 +63,8 @@ struct BoxGeom {
   float cx[4], cy[4];        // corners in ring order, centre-relative
   float nx[4], ny[4], d[4];  // outward half-planes n.p <= d, centre-relative
   float area;
+  float radius;  // circumradius, 0.5 * sqrt(w^2 + l^2)
+  bool sized;    // both sides >= SIZE_MIN: the reject may apply
 };
 
 __device__ void box_geom(const float* __restrict__ b, BoxGeom* g) {
@@ -69,6 +93,16 @@ __device__ void box_geom(const float* __restrict__ b, BoxGeom* g) {
     g->d[k] = nx * g->cx[k] + ny * g->cy[k];
   }
   g->area = w * l;
+  g->radius = 0.5f * sqrtf(w * w + l * l);
+  g->sized = w >= SIZE_MIN && l >= SIZE_MIN;
+}
+
+// True when the two boxes cannot intersect: their circumcircles, grown
+// by FAR_SCALE, are apart. Mirrors ops/cuda_iou.py `far_pairs`.
+__device__ bool far_pair(const BoxGeom& a, const BoxGeom& b) {
+  const float dx = b.x - a.x, dy = b.y - a.y;
+  const float reach = (a.radius + b.radius) * FAR_SCALE;
+  return a.sized && b.sized && dx * dx + dy * dy > reach * reach;
 }
 
 // Sum over the subject's edges (corners px, py) of cross(P, Q) of each
@@ -126,26 +160,57 @@ __device__ float pair_iou(const BoxGeom& a, const BoxGeom& b) {
   return inter / (uni <= 0.f ? 1.f : uni);
 }
 
-__global__ void __launch_bounds__(TI * TJ)
+__global__ void __launch_bounds__(THREADS)
 rotated_iou_kernel(const float* __restrict__ boxes1,
                    const float* __restrict__ boxes2,
                    float* __restrict__ out, int n, int m) {
-  __shared__ BoxGeom gi[TI];
-  __shared__ BoxGeom gj[TJ];
-  const int i0 = blockIdx.y * TI;
-  const int j0 = blockIdx.x * TJ;
-  const int lin = threadIdx.y * TJ + threadIdx.x;
-  if (lin < TJ) {
-    if (j0 + lin < m) box_geom(boxes2 + 5 * (j0 + lin), &gj[lin]);
-  } else if (lin < TJ + TI) {
-    const int t = lin - TJ;
-    if (i0 + t < n) box_geom(boxes1 + 5 * (i0 + t), &gi[t]);
+  __shared__ BoxGeom gi[TILE];
+  __shared__ BoxGeom gj[TILE];
+  __shared__ unsigned short survivors[TILE * TILE];  // ti * TILE + tj
+  __shared__ int n_survivors;
+  const int i0 = blockIdx.y, istep = gridDim.y;  // rows i0 + istep * t
+  const int j0 = blockIdx.x * TILE;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (tid < TILE) {
+    if (j0 + tid < m) box_geom(boxes2 + 5 * (j0 + tid), &gj[tid]);
+  } else if (tid < 2 * TILE) {
+    const int t = tid - TILE;
+    const int i = i0 + istep * t;
+    if (i < n) box_geom(boxes1 + 5 * i, &gi[t]);
+  }
+  if (tid == 0) n_survivors = 0;
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < PAIRS_PER_THREAD; ++q) {
+    const int p = q * THREADS + tid;  // a warp covers one row of the tile
+    const int ti = p / TILE, tj = p % TILE;
+    const int i = i0 + istep * ti, j = j0 + tj;
+    bool survive = false;
+    if (i < n && j < m) {
+      if (far_pair(gi[ti], gj[tj])) {
+        out[static_cast<size_t>(i) * m + j] = 0.f;
+      } else {
+        survive = true;
+      }
+    }
+    const unsigned vote = __ballot_sync(0xffffffffu, survive);
+    int base = 0;
+    if (lane == 0 && vote) base = atomicAdd(&n_survivors, __popc(vote));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (survive) {
+      survivors[base + __popc(vote & ((1u << lane) - 1u))] =
+          static_cast<unsigned short>(p);
+    }
   }
   __syncthreads();
-  const int i = i0 + threadIdx.y;
-  const int j = j0 + threadIdx.x;
-  if (i >= n || j >= m) return;
-  out[static_cast<size_t>(i) * m + j] = pair_iou(gi[threadIdx.y], gj[threadIdx.x]);
+  const int count = n_survivors;
+  for (int s = tid; s < count; s += THREADS) {
+    const int p = survivors[s];
+    const int ti = p / TILE, tj = p % TILE;
+    out[static_cast<size_t>(i0 + istep * ti) * m + j0 + tj] =
+        pair_iou(gi[ti], gj[tj]);
+  }
 }
 
 }  // namespace
@@ -156,9 +221,8 @@ extern "C" {
 // device. Returns cudaGetLastError() after the launch.
 int rotated_iou_launch(const float* boxes1, const float* boxes2, float* out,
                        int n, int m, cudaStream_t stream) {
-  const dim3 grid((m + TJ - 1) / TJ, (n + TI - 1) / TI);
-  const dim3 block(TJ, TI);
-  rotated_iou_kernel<<<grid, block, 0, stream>>>(boxes1, boxes2, out, n, m);
+  const dim3 grid((m + TILE - 1) / TILE, (n + TILE - 1) / TILE);
+  rotated_iou_kernel<<<grid, THREADS, 0, stream>>>(boxes1, boxes2, out, n, m);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,8 @@ Replaces the Pallas TPU kernel ``second_tpu/ops/pallas_iou.py``
 parallel-edge rules of ``second_tpu.core.rotated_iou``. Each pair is
 computed in a frame centred on its first box, which keeps fp32 accurate
 far from the sensor (see the CUDA source's header, which also says
-what bounds the kernel on the card).
+what bounds the kernel on the card). The kernel writes 0.0 without
+clipping for the pairs :func:`far_pairs` rejects, and clips the rest.
 
 :func:`rotated_iou_matrix` launches the kernel for CUDA tensors and runs
 :func:`rotated_iou_matrix_plain` for CPU tensors; ``launches`` counts
@@ -18,8 +19,16 @@ import ctypes
 import torch
 
 KERNEL = "rotated_iou"
-# exact-zero tests of the boundary rules need unfused multiply-adds
+# exact-zero tests of the boundary rules need unfused multiply-adds, and
+# the kernel's far-pair test must round as :func:`far_pairs` does
 BUILD_FLAGS = ("-fmad=false",)
+# the kernel's far-pair reject (``far_pair`` in the CUDA source): the
+# circumcircles grown by FAR_SCALE are apart, and both boxes have sides
+# of at least SIZE_MIN (a box of zero size has only trivial half-planes
+# and scores the other box's area wherever it lies). Both are powers of
+# two apart from 1, so float32 holds them exactly on both sides.
+FAR_SCALE = 1.0 + 2.0 ** -10
+SIZE_MIN = 2.0 ** -10
 launches = 0
 
 _lib = None
@@ -117,6 +126,27 @@ def rotated_iou_matrix_plain(boxes1, boxes2):
     inter = 0.5 * torch.abs(s)
     union = aarea[:, None] + barea[None, :] - inter
     return inter / torch.where(union <= 0, torch.ones_like(union), union)
+
+
+def _reach(boxes):
+    """[N, 5] -> circumradius [N] and whether both sides reach SIZE_MIN."""
+    _, _, w, l, _ = boxes.unbind(-1)
+    return 0.5 * torch.sqrt(w * w + l * l), (w >= SIZE_MIN) & (l >= SIZE_MIN)
+
+
+def far_pairs(boxes1, boxes2):
+    """[N, 5] x [M, 5] -> [N, M] bool: the pairs the kernel rejects and
+    writes as 0.0 without clipping, in the kernel's arithmetic (line for
+    line its ``far_pair``). Such boxes cannot intersect, and in float32
+    :func:`rotated_iou_matrix_plain` is exactly 0.0 on each of them
+    (``tests/test_torch_kernels.py``)."""
+    r1, sized1 = _reach(boxes1)
+    r2, sized2 = _reach(boxes2)
+    dx = boxes2[None, :, 0] - boxes1[:, None, 0]
+    dy = boxes2[None, :, 1] - boxes1[:, None, 1]
+    reach = (r1[:, None] + r2[None, :]) * FAR_SCALE
+    return (sized1[:, None] & sized2[None, :]
+            & (dx * dx + dy * dy > reach * reach))
 
 
 def rotated_iou_matrix(boxes1, boxes2):

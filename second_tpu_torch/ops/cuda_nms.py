@@ -5,11 +5,12 @@ Replaces the Pallas TPU kernel ``second_tpu/ops/pallas_nms.py``
 candidates in score order and their validity, visit them in rank order;
 a candidate still alive is kept and kills every later candidate whose
 IoU with it is above the threshold. What bounds the kernel on the card
-and how it is laid out is in the CUDA source's header.
+and how it is laid out (a parallel build of [ceil(n/64), n] suppression
+bitmasks, then a sweep in one warp) is in the CUDA source's header.
 
-:func:`greedy_suppress` launches the kernel for CUDA tensors and runs
-:func:`greedy_suppress_plain` for CPU tensors; ``launches`` counts
-kernel launches.
+:func:`greedy_suppress` launches the two kernels for CUDA tensors and
+runs :func:`greedy_suppress_plain` for CPU tensors; ``launches`` counts
+kernel launches (two per call).
 """
 
 import ctypes
@@ -17,7 +18,8 @@ import ctypes
 import torch
 
 KERNEL = "greedy_nms"
-MAX_N = 49152  # alive flags live in the block's 48 KB of shared memory
+# bounds the mask workspace, (n + 1) * ceil(n / 64) * 8 bytes: 302 MB here
+MAX_N = 49152
 launches = 0
 
 _lib = None
@@ -30,7 +32,8 @@ def _load():
 
         lib = build.load(KERNEL)
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.greedy_nms_launch.argtypes = [vp, vp, vp, i, ctypes.c_float, vp]
+        lib.greedy_nms_launch.argtypes = [vp, vp, vp, vp, i, ctypes.c_float,
+                                          vp]
         lib.greedy_nms_launch.restype = i
         _lib = lib
     return _lib
@@ -78,13 +81,18 @@ def greedy_suppress(iou, valid, iou_threshold):
     keep = torch.empty((n,), dtype=torch.bool, device=iou.device)
     if n == 0:
         return keep
+    # suppression bitmasks, word-major: bit b of mask[w, i] is
+    # j = 64 w + b > i with iou[i, j] > threshold (words left of the
+    # diagonal stay unwritten); mask[w, n] is ~valid, the sweep's start
+    mask = torch.empty(((n + 63) // 64, n + 1), dtype=torch.int64,
+                       device=iou.device)
     lib = _load()
     stream = torch.cuda.current_stream(iou.device).cuda_stream
     code = lib.greedy_nms_launch(iou.data_ptr(), valid.data_ptr(),
-                                 keep.data_ptr(), n, float(iou_threshold),
-                                 stream)
+                                 keep.data_ptr(), mask.data_ptr(), n,
+                                 float(iou_threshold), stream)
     from ..csrc.build import check
 
     check(lib, code, "greedy_nms_launch")
-    launches += 1
+    launches += 2
     return keep

@@ -12,15 +12,15 @@ Tolerances: K1 1e-4 (fp32 sums of K*Cin products in another order, as
 calls; rows that miss at every offset exactly the bias or zero; K2
 1e-5 of the largest magnitude (fp32 sums over every rule row in another
 order), and bitwise equal across two calls; K3 1e-5 against the plain
-version on the card (fp32 rounding of the same arithmetic); K4 exact (a
-keep mask).
+version on the card (fp32 rounding of the same arithmetic), exactly 0.0
+where the far-pair reject applies, and bitwise equal across two calls;
+K4 exact (a keep mask).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from second_tpu_torch.core.rotated_iou import rotated_iou_matrix
 from second_tpu_torch.ops import (
     cuda_iou,
     cuda_nms,
@@ -34,15 +34,6 @@ def _random_boxes(rng, n, spread=10.0):
     return np.stack([rng.uniform(0, spread, n), rng.uniform(0, spread, n),
                      rng.uniform(0.5, 4, n), rng.uniform(0.5, 4, n),
                      rng.uniform(-np.pi, np.pi, n)], 1).astype(np.float32)
-
-
-def _nms_inputs(rng, n):
-    """A score-ordered IoU matrix of random boxes and a validity mask."""
-    boxes = _random_boxes(rng, n, spread=12.0)
-    iou = rotated_iou_matrix(boxes.astype(np.float64),
-                             boxes.astype(np.float64)).astype(np.float32)
-    valid = rng.uniform(size=n) < 0.9
-    return iou, valid
 
 
 @pytest.fixture
@@ -219,34 +210,92 @@ def test_k2_cuda_matches_plain_and_is_deterministic(cuda_device, cin, cout,
 
 
 @pytest.mark.cuda
-def test_k3_cuda_matches_plain(cuda_device):
+@pytest.mark.parametrize("spread,overlapping", [(40.0, 0.01), (70.0, 0.004)])
+def test_k3_cuda_matches_plain(cuda_device, spread, overlapping):
+    """Within 1e-5 of the plain version, and exactly 0.0 on every pair
+    the far-pair reject takes (most of them at these spreads)."""
     # the plain version runs on the card too: at 40 m from the origin
     # the Green's-theorem cross terms are ~1e3, so fp32 IoU moves by
     # ~1e-5 between the CPU's and the card's cos/sin alone
     rng = np.random.RandomState(3)
-    boxes = torch.from_numpy(_random_boxes(rng, 1000, spread=40.0))
+    boxes = torch.from_numpy(_random_boxes(rng, 1000, spread=spread))
     boxes = boxes.to(cuda_device)
     ref = cuda_iou.rotated_iou_matrix_plain(boxes, boxes)
+    far = cuda_iou.far_pairs(boxes, boxes)
     before = cuda_iou.launches
     out = cuda_iou.rotated_iou_matrix(boxes, boxes)
     torch.cuda.synchronize()
     assert cuda_iou.launches == before + 1
-    assert (ref > 0).float().mean() > 0.01
+    assert (ref > 0).float().mean() > overlapping
+    assert far.float().mean() > 0.9
+    assert torch.equal(out[far], torch.zeros_like(out[far]))
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    assert torch.equal(out, cuda_iou.rotated_iou_matrix(boxes, boxes))
 
 
 @pytest.mark.cuda
-def test_k4_cuda_matches_plain(cuda_device):
-    rng = np.random.RandomState(4)
-    iou, valid = _nms_inputs(rng, 1000)
-    iou_t, valid_t = torch.from_numpy(iou), torch.from_numpy(valid)
-    ref = cuda_nms.greedy_suppress_plain(iou_t, valid_t, 0.01)
+@pytest.mark.parametrize("n,m", [(1, 1), (33, 70), (70, 33), (1000, 7)])
+def test_k3_cuda_ragged_shapes(cuda_device, n, m):
+    """Tiles cut by the matrix's edge, rows strided over the grid."""
+    rng = np.random.RandomState(n + m)
+    b1 = torch.from_numpy(_random_boxes(rng, n, spread=6.0)).to(cuda_device)
+    b2 = torch.from_numpy(_random_boxes(rng, m, spread=6.0)).to(cuda_device)
+    out = cuda_iou.rotated_iou_matrix(b1, b2)
+    ref = cuda_iou.rotated_iou_matrix_plain(b1, b2)
+    assert out.shape == (n, m)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+def _sweep_case(case, g, device):
+    """(iou [n, n], valid [n]) on the CPU for a size or an edge case; the
+    IoU of random boxes at a fixed density is computed on ``device``."""
+    if case == "all_invalid":
+        return torch.full((130, 130), 0.5), torch.zeros(130, dtype=torch.bool)
+    if case == "every_pair_above":
+        return torch.ones(130, 130), torch.arange(130) % 3 != 0
+    if case == "no_pair_above":
+        return torch.zeros(130, 130), torch.arange(130) % 3 != 0
+    if case == "nan_entries":  # NaN compares false, as in the plain sweep
+        iou = torch.rand(130, 130, generator=g)
+        iou[torch.rand(130, 130, generator=g) < 0.5] = float("nan")
+        return iou, torch.ones(130, dtype=torch.bool)
+    boxes = torch.from_numpy(_random_boxes(
+        np.random.RandomState(case), case, spread=12.0 * (case / 200) ** 0.5))
+    boxes = boxes.to(device)
+    iou = cuda_iou.rotated_iou_matrix_plain(boxes, boxes).cpu()
+    return iou, torch.rand(case, generator=g) < 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [1, 63, 64, 65, 1000, 5000, "all_invalid",
+                                  "every_pair_above", "no_pair_above",
+                                  "nan_entries"])
+@pytest.mark.parametrize("threshold", [0.01, 0.3])
+def test_k4_cuda_matches_plain(cuda_device, case, threshold):
+    """The keep mask equals the plain sweep's exactly; two launches (the
+    mask build and the sweep) per call; two calls bitwise equal."""
+    iou, valid = _sweep_case(case, torch.Generator().manual_seed(4),
+                             cuda_device)
+    ref = cuda_nms.greedy_suppress_plain(iou, valid, threshold)
+    iou_d, valid_d = iou.to(cuda_device), valid.to(cuda_device)
     before = cuda_nms.launches
-    keep = cuda_nms.greedy_suppress(iou_t.to(cuda_device),
-                                    valid_t.to(cuda_device), 0.01)
+    keep = cuda_nms.greedy_suppress(iou_d, valid_d, threshold)
     torch.cuda.synchronize()
-    assert cuda_nms.launches == before + 1
+    assert cuda_nms.launches == before + 2
     assert torch.equal(keep.cpu(), ref)
+    assert torch.equal(keep, cuda_nms.greedy_suppress(iou_d, valid_d,
+                                                      threshold))
+    if case in (1000, 5000):
+        assert 0 < int(ref.sum()) < int(valid.sum())
+
+
+@pytest.mark.cuda
+def test_k4_cuda_refuses_n_above_max(cuda_device):
+    n = cuda_nms.MAX_N + 1
+    iou = torch.empty((n, n), device=cuda_device)  # 9.7 GB, never read
+    with pytest.raises(ValueError, match=f"n={n}"):
+        cuda_nms.greedy_suppress(
+            iou, torch.ones(n, dtype=torch.bool, device=cuda_device), 0.5)
 
 
 @pytest.mark.cuda

@@ -263,6 +263,83 @@ def test_k3_full_range_port_vs_pallas(seed, origin):
     assert pallas_err > port_err
 
 
+def _near_reject_boundary(rng, k1, k2, kind, origin, aligned):
+    """k1 boxes at ``origin`` sharing one circumradius r1, and k2 boxes
+    whose centres lie (r1 + r2) * FAR_SCALE * (1 + v) away, |v| <= 1e-2
+    (an eighth exactly on it): every one of the k1 x k2 pairs sits near
+    the reject boundary. ``aligned`` puts every second box in one
+    direction and aims a corner of each box at the other's centre, where
+    the gap between the boxes is smallest."""
+    def sides(r, n):
+        if kind == "elongated":
+            a = rng.choice([1e-3, np.pi / 2 - 1e-3], n)
+        else:
+            a = rng.uniform(0, np.pi / 2, n)
+        return 2 * r * np.cos(a), 2 * r * np.sin(a)
+
+    if kind == "tiny":
+        r1 = rng.choice([2.0 ** -10, 1e-3, 1e-2, 1e-6])
+        r2 = rng.choice([2.0 ** -10, 2.0 ** -11, 1e-3, 1e-2, 0.5], k2)
+    elif kind == "zero":
+        r1 = rng.choice([0.0, 1.0])
+        r2 = rng.choice([0.0, 0.0, 1.0, 2.0 ** -11], k2)
+    else:
+        r1 = rng.uniform(0.3, 5)
+        r2 = rng.uniform(0.3, 5, k2)
+    w1, l1 = sides(r1, k1)
+    w2, l2 = sides(r2, k2)
+    if kind == "zero":
+        w1[::2] = 0.0  # segments, and points when r1 = 0
+    v = rng.choice([-1, 1], k2) * 10.0 ** rng.uniform(-8, -2, k2)
+    v[:k2 // 8] = 0.0
+    dist = (r1 + r2) * cuda_iou.FAR_SCALE * (1 + v)
+    phi = np.full(k2, rng.uniform(-np.pi, np.pi)) if aligned else \
+        rng.uniform(-np.pi, np.pi, k2)
+    x2 = origin[0] + dist * np.cos(phi)
+    y2 = origin[1] + dist * np.sin(phi)
+    if aligned:  # corner k points at atan2(DY[k] l, DX[k] w) - angle
+        dx, dy = np.array([-.5, -.5, .5, .5]), np.array([-.5, .5, .5, -.5])
+        k = rng.randint(4, size=k1)
+        a1 = np.arctan2(dy[k] * l1, dx[k] * w1) - phi[0]
+        k = rng.randint(4, size=k2)
+        a2 = np.arctan2(dy[k] * l2, dx[k] * w2) - (phi + np.pi)
+    else:
+        a1 = rng.uniform(-np.pi, np.pi, k1)
+        a2 = rng.uniform(-np.pi, np.pi, k2)
+    b1 = np.stack([np.full(k1, origin[0]), np.full(k1, origin[1]), w1, l1,
+                   a1], 1)
+    b2 = np.stack([x2, y2, w2, l2, a2], 1)
+    return (torch.from_numpy(b1.astype(np.float32)),
+            torch.from_numpy(b2.astype(np.float32)))
+
+
+def test_k3_far_pairs_are_exactly_zero():
+    """The kernel writes 0.0 for the pairs ``far_pairs`` rejects, without
+    clipping them: the full arithmetic in float32 must give exactly 0.0
+    on every such pair. 100352 pairs near the reject boundary, at the
+    origin and 60-75 m out, every angle, corners aimed at each other,
+    elongated, tiny and zero-size boxes. A zero-size box scores the
+    other box's area wherever it lies, so the reject must spare it."""
+    rng = np.random.RandomState(12)
+    kinds = ["normal", "elongated", "tiny", "zero"]
+    rejected = spared = 0
+    for blk in range(8):
+        rad = 0.0 if blk < 2 else rng.uniform(60, 75)
+        ang = rng.uniform(-np.pi, np.pi)
+        b1, b2 = _near_reject_boundary(
+            rng, 112, 112, kinds[blk % 4], (rad * np.cos(ang),
+                                            rad * np.sin(ang)),
+            aligned=blk % 2 == 0)
+        far = cuda_iou.far_pairs(b1, b2)
+        plain = cuda_iou.rotated_iou_matrix_plain(b1, b2)
+        assert (plain[far] == 0.0).all()
+        assert not (far & (plain > 0)).any()
+        rejected += int(far.sum())
+        spared += int((~far & (plain > 0)).sum())
+    assert 0.2 < rejected / (8 * 112 * 112) < 0.8
+    assert spared > 0  # the zero-size boxes' pairs
+
+
 DEGENERATE = {
     # the cases of tests/test_rotated_iou_oracle.py::test_degenerate_cases
     "identical": ([1.0, 2.0, 3.0, 4.0, 0.7], [1.0, 2.0, 3.0, 4.0, 0.7]),
@@ -322,6 +399,77 @@ def test_k4_matches_pallas_and_fori(threshold):
     assert 0 < keep.sum() < valid.sum()  # some kept, some suppressed
     np.testing.assert_array_equal(keep, pallas)
     np.testing.assert_array_equal(keep, fori)
+
+
+def _bitmask_sweep_model(iou, valid, threshold):
+    """numpy model of the kernel's word-blocked sweep
+    (``csrc/greedy_nms.cu``): masks of the columns j > i in 64-bit words,
+    a scan of each word's 64 bits in rank order with its diagonal words,
+    and the kept rows' masks ORed into the later words."""
+    n = iou.shape[0]
+    words = -(-n // 64)
+    cols = np.arange(64 * words)
+    sup = np.zeros((n, 64 * words), bool)
+    sup[:, :n] = iou > threshold
+    sup &= cols[None, :] > np.arange(n)[:, None]
+    mask = [[sum(1 << int(b) for b in np.flatnonzero(sup[i, 64 * w:][:64]))
+             for w in range(words)] for i in range(n)]
+    removed = [sum(1 << b for b in range(64)
+                   if 64 * w + b >= n or not valid[64 * w + b])
+               for w in range(words)]
+    keep = np.zeros(n, bool)
+    for w in range(words):
+        cur = removed[w]
+        for b in range(64):
+            if not cur >> b & 1:
+                cur |= mask[64 * w + b][w]
+        kept = [b for b in range(64) if not cur >> b & 1]
+        keep[[64 * w + b for b in kept]] = True
+        for w2 in range(w + 1, words):
+            for b in kept:
+                removed[w2] |= mask[64 * w + b][w2]
+    return keep
+
+
+def _sparse_iou(rng, n):
+    """[n, n] with ~8 entries per row in (0, 1), some NaN, the rest 0."""
+    iou = rng.uniform(size=(n, n)) * (rng.uniform(size=(n, n)) < 8 / n)
+    iou[rng.uniform(size=(n, n)) < 1 / n] = np.nan
+    return iou.astype(np.float32)
+
+
+SWEEP_EDGES = {
+    "all_invalid": lambda n: (np.full((n, n), 0.5, np.float32),
+                              np.zeros(n, bool)),
+    "every_pair_above": lambda n: (np.ones((n, n), np.float32),
+                                   np.arange(n) % 3 != 0),
+    "no_pair_above": lambda n: (np.zeros((n, n), np.float32),
+                                np.arange(n) % 3 != 0),
+}
+
+
+@pytest.mark.parametrize("case", [(n, thr) for n in (1, 2, 63, 64, 65, 200,
+                                                     1000)
+                                  for thr in (0.01, 0.3)]
+                         + sorted(SWEEP_EDGES), ids=str)
+def test_k4_bitmask_sweep_model_matches_plain(case):
+    if case in SWEEP_EDGES:
+        iou, valid = SWEEP_EDGES[case](130)
+        thr = 0.3
+    else:
+        n, thr = case
+        rng = np.random.RandomState(n)
+        iou, valid = _sparse_iou(rng, n), rng.uniform(size=n) < 0.9
+    ref = cuda_nms.greedy_suppress_plain(torch.from_numpy(iou),
+                                         torch.from_numpy(valid), thr)
+    np.testing.assert_array_equal(_bitmask_sweep_model(iou, valid, thr),
+                                  ref.numpy())
+    if case == "every_pair_above":
+        assert ref.sum() == 1
+    elif case == "no_pair_above":
+        np.testing.assert_array_equal(ref.numpy(), valid)
+    elif case != "all_invalid" and case[0] >= 200:
+        assert 0 < ref.sum() < valid.sum()  # kept and suppressed both
 
 
 # --------------------------------------------------------------- K2 and
