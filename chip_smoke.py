@@ -2,11 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at the published width of
-``configs/car.fhd.config``, with random weights from seed 0: car.fhd
-inference (points -> detections) through ``InferenceContext``, and
-car.fhd training steps at the train reader's batch 8 through
-``train.state.make_train_step``. Phases, each printed as it runs:
+Drives the port's three main paths at the published width of their
+configs, with random weights from seed 0: car.fhd inference (points ->
+detections) through ``InferenceContext`` and car.fhd training steps at
+the train reader's batch 8 through ``train.state.make_train_step``
+(``configs/car.fhd.config``), and PointPillars inference through
+``InferenceContext`` on the flat pillar path
+(``configs/pointpillars/car/xyres_16.config``). Phases, each printed as
+it runs:
 
   1. the card's name and power limit (nvidia-smi) and the nvcc build of
      the four kernels K1 (sparse conv), K2 (its weight gradient), K3
@@ -47,15 +50,27 @@ car.fhd training steps at the train reader's batch 8 through
      steps on that batch (device ms, loss, lr, peak memory; losses
      finite and falling; K1 and K2 launched), a per-part breakdown of
      one step, and one step at batch 1 against the same step on the CPU
-     with the plain kernels (loss and every gradient).
+     with the plain kernels (loss and every gradient);
+  8. PointPillars: 4 requests from ``make_kitti_scene(RandomState(i))``
+     (detection counts; host preparation, with its host voxelizer, and
+     device inference, CUDA-synchronised; K4's launch counter must rise,
+     and K3's where the config rotates its NMS), peak memory; frame 0
+     again with the network on the CPU (preds agree, detections
+     matched); the flat path's BEV canvas against the module path's
+     (``voxelize`` -> the encoder -> ``PointPillarsScatter``) on the
+     card; frames 0 and 1 as one batch against each alone; a per-stage
+     breakdown (pillarize, PFN, scatter, RPN, predict, and the module
+     path's voxelize and encoder); K4 on frame 0's NMS candidates
+     against its plain version, timed.
 
 Then one JSON line with the kernels (``ms`` times the wrapper,
 ``device_ms`` the card alone; K1's times and bounds
 are sums over the inference frame's 10 sparse convs, K2's over the
 training batch's 10; ``bound_ms`` is the fp32 bound and
 ``bound_tf32x3_ms`` the 3xTF32 one; K1's ``max_abs_err`` is its largest over phases 2
-and 6; ``launches`` count the main paths' runs, phases 3
-and 7, with ``launches_by_path`` splitting them), and as the last line
+and 6; K4's ``pp_candidates`` holds phase 8's numbers; ``launches`` count
+the main paths' runs, phases 3, 7 and 8, with ``launches_by_path``
+splitting them), and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for the whole run (the
 slices are fp32). Any failed check raises, which exits non-zero; without
 a CUDA device the script exits 1 before printing any result.
@@ -80,6 +95,13 @@ from second_tpu_torch.core.inference import (
 )
 from second_tpu_torch.csrc import build
 from second_tpu_torch.data import make_kitti_scene, merge_second_batch
+from second_tpu_torch.models.middle import scatter_canvas
+from second_tpu_torch.models.pp_fast import (
+    flat_pfn,
+    flat_pfn_bev,
+    flat_pillarize,
+    pointpillars_infer,
+)
 from second_tpu_torch.models.voxelnet import compute_loss, init_weights, predict
 from second_tpu_torch.ops import (
     cuda_iou,
@@ -87,12 +109,15 @@ from second_tpu_torch.ops import (
     cuda_sparse_conv,
     cuda_sparse_conv_dw,
 )
+from second_tpu_torch.ops.nms import candidate_iou
 from second_tpu_torch.ops.sparse import SparseConvFunction, transpose_rulebook
+from second_tpu_torch.ops.voxelize import voxelize
 from second_tpu_torch.tools.nms_profile import clustered_boxes
 from second_tpu_torch.train import optimizer as opt_builder
 from second_tpu_torch.train.state import forward_loss, make_train_step
 
 CONFIG = "configs/car.fhd.config"
+PP_CONFIG = "configs/pointpillars/car/xyres_16.config"
 N_FRAMES = 4
 # K1: fp32 sums of K*Cin products in another order; K3: fp32 rounding of
 # the same arithmetic; K4: a keep mask, exact
@@ -121,6 +146,13 @@ DGRAD_TOL = 1e-4
 # norm's backward cancels, and fp32 rounding picks the gate of ReLU
 # inputs near zero); in L2 the two fp32 steps are within 6e-3 of
 # float64 (NVIDIA H100 80GB HBM3 at 700 W, this script's phase 7)
+# PointPillars: the flat path's BEV canvas against the module path's on
+# the card (allclose): batch norm's affine form, and per-pillar sums that
+# add with atomics; batch 2 against the two frames alone: the RPN's preds
+# (max |diff| over max |value|; cuDNN may pick other algorithms for
+# another batch), then detections matched as card against CPU
+PP_CANVAS_TOL = 2e-4
+PP_BATCH_REL_TOL = 1e-5
 TRAIN_LOSS_REL_TOL = 1e-4
 TRAIN_GRAD_L2_TOL = 2e-2
 TRAIN_BATCH = 8
@@ -162,6 +194,8 @@ KERNELS = [
 PATH_KERNELS = {
     "inference": ("sparse_conv_gather_gemm", "rotated_iou", "greedy_nms"),
     "train": ("sparse_conv_gather_gemm", "sparse_conv_weight_grad"),
+    # and rotated_iou where the config rotates its NMS (xyres_16 does not)
+    "pp_inference": ("greedy_nms",),
 }
 # the 10 sparse convs of SpMiddleFHD (scales 0-2): (weight, rulebook,
 # submanifold)
@@ -617,6 +651,231 @@ def phase_breakdown(ctx):
         f"{k} {v:.3f}" for k, v in parts.items()))
 
 
+def _pp_flat_inputs(ctx, ex):
+    """The flat path's pillarizer arguments for frame 0 of ``ex``."""
+    gen = ctx.parts["voxel_generator"]
+    return (ex["points"][0], ex["points_count"][0, 0],
+            tuple(float(x) for x in gen.voxel_size),
+            tuple(float(x) for x in gen.point_cloud_range[:3]),
+            tuple(int(x) for x in gen.grid_size),
+            ctx.config.eval_input_reader.preprocess.max_number_of_voxels,
+            int(gen.max_num_points_per_voxel))
+
+
+def pp_slice(ctx):
+    """4 PointPillars requests through the port's entry points; returns
+    the kernel launches made during them."""
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_launches()
+    for i in range(N_FRAMES):
+        points = make_kitti_scene(np.random.RandomState(i))[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        example = ctx.get_inference_input_dict({}, points)
+        t1 = time.perf_counter()
+        dets = ctx.inference(example)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        boxes = dets[0]["box3d_lidar"]
+        check(boxes.ndim == 2 and boxes.shape[1] == 7 and len(boxes) > 0
+              and np.isfinite(boxes).all(), f"pp frame {i}: bad boxes")
+        metrics = example["metrics"][0]
+        log(f"pp frame {i}: {len(points)} points, "
+            f"{int(example['num_voxels'][0, 0])} pillars, "
+            f"{int(example['anchors_mask'].sum())} of "
+            f"{example['anchors_mask'].size} anchors unmasked, "
+            f"{len(boxes)} detections, host prep {(t1 - t0) * 1e3:.3f} ms "
+            f"(of which the host voxelizer, kept for the anchor mask, "
+            f"{metrics['voxel_gene_time'] * 1e3:.3f}), device inference "
+            f"{(t2 - t1) * 1e3:.3f} ms, total {(t2 - t0) * 1e3:.3f} ms")
+    launches = read_launches("pp_inference")
+    if ctx.parts["spec"].use_rotate_nms:
+        check(launches["rotated_iou"] > 0,
+              "the pp_inference path never launched rotated_iou")
+    log(f"pp: launches in the {N_FRAMES} frames: {launches}")
+    log(f"pp: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, of which "
+        f"{before / 2**20:.1f} MiB were allocated before the requests "
+        f"(both networks' weights and the car.fhd phases' tensors)")
+    return launches
+
+
+def pp_checks(ctx, device):
+    """Frame 0 against the network on the CPU; the flat path's canvas
+    against the module path's on the card; frames 0 and 1 as one batch
+    against each alone."""
+    examples = [ctx.get_inference_input_dict(
+        {}, make_kitti_scene(np.random.RandomState(i))[0]) for i in (0, 1)]
+    preds, dets = ctx.run(examples[0])
+    cpu = InferenceContext()
+    cpu.build(PP_CONFIG, device="cpu")
+    cpu.parts["net"].load_state_dict(ctx.parts["net"].state_dict())
+    t0 = time.perf_counter()
+    preds_cpu, dets_cpu = cpu.run(examples[0])
+    log(f"pp reference: frame 0 on the CPU took "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock)")
+    for key in preds:
+        ref = preds_cpu[key]
+        rel = ((preds[key].cpu() - ref).abs().max()
+               / ref.abs().max().clamp(min=1e-12)).item()
+        check(rel <= PREDS_REL_TOL,
+              f"pp {key}: card vs CPU rel err {rel} > {PREDS_REL_TOL}")
+        log(f"pp reference: {key} {tuple(ref.shape)} card vs CPU rel err "
+            f"{rel:.3e}")
+    frac, _, _ = _match(_ragged(dets), _ragged(dets_cpu))
+    log(f"pp reference: detections card {int(dets['valid'].sum())}, CPU "
+        f"{int(dets_cpu['valid'].sum())}, matched {frac:.4f}")
+    check(frac >= FRAME_MATCH_MIN,
+          f"pp detections matched {frac} < {FRAME_MATCH_MIN}")
+
+    net = ctx.parts["net"]
+    ex = example_to_device(examples[0], device)
+    pts, n, vs, rmin, grid, max_voxels, t = _pp_flat_inputs(ctx, ex)
+    with torch.no_grad():
+        flat = flat_pillarize(pts, n, vs, rmin, grid, max_voxels, t)
+        bev_flat = flat_pfn_bev(net.voxel_feature_extractor, *flat[:5],
+                                max_points_per_voxel=t, grid_size=grid)[None]
+        voxels, coords, counts, nv = voxelize(pts, n, vs, rmin, grid,
+                                              max_voxels, t)
+        bev_mod = net.middle_feature_extractor(
+            net.voxel_feature_extractor(voxels[None], counts[None],
+                                        coords[None]), coords[None])
+    err = (bev_flat - bev_mod).abs().max().item()
+    check(int(nv) == int(flat[5]) == int(examples[0]["num_voxels"][0, 0]),
+          f"pp: pillars flat {int(flat[5])}, module {int(nv)}, host "
+          f"{int(examples[0]['num_voxels'][0, 0])}")
+    check(torch.allclose(bev_flat, bev_mod, atol=PP_CANVAS_TOL,
+                         rtol=PP_CANVAS_TOL),
+          f"pp: flat canvas vs module path max err {err}")
+    log(f"pp canvas: flat path vs module path (voxelize -> "
+        f"{type(net.voxel_feature_extractor).__name__} -> "
+        f"PointPillarsScatter) on the card, {tuple(bev_flat.shape)}, "
+        f"{int(nv)} pillars, max err {err:.3e} (max "
+        f"{bev_mod.abs().max().item():.3f})")
+
+    batch = {k: np.concatenate([v, examples[1][k]])
+             if isinstance(v, np.ndarray) else v + examples[1][k]
+             for k, v in examples[0].items()}
+    preds_b, dets_b = ctx.run(batch)
+    for b, example in enumerate(examples):
+        preds_1, dets_1 = ctx.run(example)
+        rel = max(((preds_b[k][b] - preds_1[k][0]).abs().max()
+                   / preds_1[k][0].abs().max()).item() for k in preds_1)
+        frac, _, _ = _match(_ragged({k: v[b:b + 1] for k, v in
+                                     dets_b.items()}), _ragged(dets_1))
+        log(f"pp batch 2: frame {b} against itself alone: preds rel err "
+            f"{rel:.3e}, detections {int(dets_b['valid'][b].sum())} vs "
+            f"{int(dets_1['valid'].sum())}, matched {frac:.4f}, bitwise "
+            f"equal {all(torch.equal(dets_b[k][b], dets_1[k][0]) for k in dets_1)}")
+        check(rel <= PP_BATCH_REL_TOL,
+              f"pp batch 2 frame {b}: preds rel err {rel}")
+        check(frac >= FRAME_MATCH_MIN,
+              f"pp batch 2 frame {b}: detections matched {frac}")
+    return examples[0], preds
+
+
+def pp_breakdown(ctx, example, preds, device):
+    """Device ms of each stage of frame 0 (synchronised, mean of 5), the
+    module path's stages beside them, and K4 on frame 0's NMS
+    candidates against its plain version. Returns K4's numbers."""
+    net, spec = ctx.parts["net"], ctx.parts["spec"]
+    vfe = net.voxel_feature_extractor
+    ex = example_to_device(example, device)
+    pts, n, vs, rmin, grid, max_voxels, t = _pp_flat_inputs(ctx, ex)
+    with torch.no_grad():
+        flat = flat_pillarize(pts, n, vs, rmin, grid, max_voxels, t)
+        pooled = flat_pfn(vfe, flat[0], flat[1], flat[2], flat[4], t)
+        bev = scatter_canvas(pooled[None], flat[3][None], grid[1], grid[0])
+        voxels, coords, counts, _ = voxelize(pts, n, vs, rmin, grid,
+                                             max_voxels, t)
+        stages = {
+            "h2d": lambda: example_to_device(example, device),
+            "pillarize": lambda: flat_pillarize(pts, n, vs, rmin, grid,
+                                                max_voxels, t),
+            "pfn": lambda: flat_pfn(vfe, flat[0], flat[1], flat[2],
+                                    flat[4], t),
+            "scatter": lambda: scatter_canvas(pooled[None], flat[3][None],
+                                              grid[1], grid[0]),
+            "rpn": lambda: net.rpn_preds(bev),
+            "predict": lambda: predict(spec, preds, ex),
+            "module path: voxelize": lambda: voxelize(
+                pts, n, vs, rmin, grid, max_voxels, t),
+            "module path: encoder": lambda: vfe(
+                voxels[None], counts[None], coords[None]),
+        }
+        parts = {name: cuda_ms(fn, iters=5, warmup=2)
+                 for name, fn in stages.items()}
+        # the same work without the host's launches in the way: each
+        # captured in a CUDA graph (the path has no host sync)
+        pillars = graph_ms(lambda: flat_pfn_bev(
+            vfe, *flat_pillarize(pts, n, vs, rmin, grid, max_voxels, t)[:5],
+            max_points_per_voxel=t, grid_size=grid), iters=5, replays=3)
+        whole = graph_ms(lambda: pointpillars_infer(
+            net, spec, ex, gen=ctx.parts["voxel_generator"],
+            max_voxels=max_voxels), iters=5, replays=3)
+    log("pp breakdown (device ms, frame 0): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()))
+    log(f"pp breakdown, device-only (CUDA graph): pillarize + pfn + "
+        f"scatter {pillars:.3f} ms (launched one by one: "
+        f"{parts['pillarize'] + parts['pfn'] + parts['scatter']:.3f}), "
+        f"the whole device path (pointpillars_infer: pillars, RPN, "
+        f"predict) {whole:.3f} ms")
+
+    # predict's NMS steps for frame 0, up to K4 (one class, background
+    # encoded as zeros)
+    box = spec.decode(preds["box_preds"][0], ex["anchors"][0])
+    scores = torch.sigmoid(preds["cls_preds"][0]).max(-1).values
+    scores = torch.where(ex["anchors_mask"][0], scores, -float("inf"))
+    top_s, top_i = torch.sort(scores, descending=True, stable=True)
+    k = spec.nms_pre_max_sizes[0]
+    cand = box[top_i[:k]][:, [0, 1, 3, 4, 6]].contiguous()
+    iou = candidate_iou(cand, spec.use_rotate_nms)
+    valid = top_s[:k] >= spec.nms_score_thresholds[0]
+    thr = spec.nms_iou_thresholds[0]
+    keep = cuda_nms.greedy_suppress(iou, valid, thr)
+    keep_ref = cuda_nms.greedy_suppress_plain(iou, valid, thr)
+    mismatches = int((keep != keep_ref).sum())
+    check(mismatches == 0, f"K4 on pp frame 0: {mismatches} keep flags differ")
+    res = {"n": k, "valid": int(valid.sum()), "kept": int(keep.sum()),
+           "ms": cuda_ms(lambda: cuda_nms.greedy_suppress(iou, valid, thr)),
+           "device_ms": graph_ms(
+               lambda: cuda_nms.greedy_suppress(iou, valid, thr)),
+           "plain_ms": cuda_ms(
+               lambda: cuda_nms.greedy_suppress_plain(iou, valid, thr),
+               iters=3, warmup=1)}
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        4 * k * k + 2 * k, K4_OPS_PER_PAIR * k * (k - 1) // 2)
+    log(f"K4 on pp frame 0's {k} candidates ({res['valid']} over the "
+        f"score threshold, {'rotated' if spec.use_rotate_nms else 'standup'}"
+        f" IoU): keep mismatches 0 "
+        f"(kept {res['kept']}), kernel {res['ms']:.4f} ms (device "
+        f"{res['device_ms']:.4f}), plain {res['plain_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.5f} ms ({res['bound_by']})")
+    return res
+
+
+def phase_pp(device):
+    """PointPillars inference at the published width of ``PP_CONFIG``
+    through the flat pillar path. Returns the launches of its requests
+    and K4's numbers on its candidates."""
+    ctx = InferenceContext()
+    ctx.build(PP_CONFIG, device=device)
+    ctx.init_random(0)
+    check(ctx.flat_pp, "PointPillars must run the flat pillar path")
+    gen = ctx.parts["voxel_generator"]
+    log(f"pp: {PP_CONFIG}, grid {gen.grid_size.tolist()}, "
+        f"{ctx.config.eval_input_reader.preprocess.max_number_of_voxels} "
+        f"pillars of T = {gen.max_num_points_per_voxel}, "
+        f"{len(ctx.parts['anchor_cache']['anchors'])} anchors, "
+        f"{type(ctx.parts['net'].voxel_feature_extractor).__name__}, "
+        f"{sum(p.numel() for p in ctx.parts['net'].parameters())} "
+        f"parameters, rotated NMS {ctx.parts['spec'].use_rotate_nms}")
+    launches = pp_slice(ctx)
+    example, preds = pp_checks(ctx, device)
+    return launches, pp_breakdown(ctx, example, preds, device)
+
+
 def train_input(i):
     """Frame i of ``make_kitti_scene`` as the train reader hands it to
     ``prep_pointcloud``: points with their boxes as annotations."""
@@ -881,12 +1140,8 @@ def phase_train(cfg, parts, batch, device):
         ex["voxels"], ex["num_points"], ex["coordinates"]))
     bev = timed("middle", lambda: net.middle_feature_extractor(
         vf, ex["coordinates"], plan))
-    raw = timed("rpn", lambda: net.rpn(bev))
+    preds = timed("rpn", lambda: net.rpn_preds(bev))
     b = ex["voxels"].shape[0]
-    preds = {"box_preds": raw["box_preds"].reshape(b, -1, spec.box_code_size),
-             "cls_preds": raw["cls_preds"].reshape(b, -1, spec.num_class),
-             "dir_cls_preds": raw["dir_cls_preds"].reshape(
-                 b, -1, spec.num_direction_bins)}
     res = timed("loss", lambda: compute_loss(spec, preds, ex))
     grads = timed("backward", lambda: torch.autograd.grad(
         res["loss"], params))
@@ -926,6 +1181,9 @@ def main():
     k1 = results["sparse_conv_gather_gemm"]
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_err)
     launches["train"] = phase_train(cfg, parts, batch, device)
+    del parts, batch
+    launches["pp_inference"], results["greedy_nms"]["pp_candidates"] = (
+        phase_pp(device))
 
     kernels = []
     for name, _, source, replaces in KERNELS:

@@ -12,18 +12,22 @@ from ..configs import schema
 from ..data.preprocess import prep_pointcloud
 from ..models.sparse_middle import SPARSE_MIDDLE_NAMES, plan_scales
 
+POINTS_BUFFER = 32768  # static padded size of examples that ship points
+
 
 def build_prep_func(input_reader_config: schema.InputReader, parts,
                     training):
     """``prep_pointcloud`` bound to the reader's preprocess settings and
     the network ``parts`` of ``build_network``; sparse middles get the
     host rulebooks (``sparse_plan_scales`` at the reader's voxel
-    capacity)."""
+    capacity), dense ones none."""
     prep_cfg = input_reader_config.preprocess
     model_cfg = parts["model_cfg"]
     middle_name = model_cfg.middle_feature_extractor.module_class_name
-    if middle_name not in SPARSE_MIDDLE_NAMES:
-        raise NotImplementedError(f"middle {middle_name!r} is not ported yet")
+    sparse_plan_scales = None
+    if middle_name in SPARSE_MIDDLE_NAMES:
+        sparse_plan_scales = plan_scales(
+            middle_name, parts["dense_shape"], prep_cfg.max_number_of_voxels)
     return partial(
         prep_pointcloud,
         voxel_generator=parts["voxel_generator"],
@@ -58,7 +62,5 @@ def build_prep_func(input_reader_config: schema.InputReader, parts,
         random_flip_x=prep_cfg.random_flip_x,
         random_flip_y=prep_cfg.random_flip_y,
         anchor_cache=parts["anchor_cache"],
-        sparse_plan_scales=plan_scales(
-            middle_name, parts["dense_shape"],
-            prep_cfg.max_number_of_voxels),
+        sparse_plan_scales=sparse_plan_scales,
     )

@@ -1,6 +1,6 @@
 """The port's model zoo; importing it registers every ported module."""
 
-from . import rpn, sparse_middle, voxel_encoders, voxelnet  # noqa: F401
+from . import middle, rpn, sparse_middle, voxel_encoders, voxelnet  # noqa: F401
 from .registry import (  # noqa: F401
     get_middle_class,
     get_rpn_class,

@@ -55,3 +55,23 @@ class MaskedBatchNorm(nn.Module):
         inv = torch.reciprocal(torch.sqrt(var + self.eps))
         y = (x - mean.view(shape)) * inv.view(shape)
         return y * self.weight.view(shape) + self.bias.view(shape)
+
+    def affine(self):
+        """Eval-mode batch norm as y = x * k + b (the flat pillar path's
+        form; JAX ``pp_fast._affine_from_bn``)."""
+        k = self.weight / torch.sqrt(self.running_var + self.eps)
+        return k, self.bias - self.running_mean * k
+
+
+class LinearBNReLU(nn.Module):
+    """A bias-free linear layer, then :class:`MaskedBatchNorm`, then ReLU,
+    on the last dimension (the JAX ``LinearBNReLU`` with ``use_norm``)."""
+
+    def __init__(self, in_features, out_features):
+        super().__init__()
+        self.linear = nn.Linear(in_features, out_features, bias=False)
+        self.bn = MaskedBatchNorm(out_features)
+
+    def forward(self, x, mask=None):
+        """``mask``: bool of x's shape without the channel dimension."""
+        return torch.relu(self.bn(self.linear(x), mask=mask))

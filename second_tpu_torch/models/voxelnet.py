@@ -1,5 +1,5 @@
-"""VoxelNet: VFE + sparse middle + RPN, plus the loss and the predict
-post-process (twin of ``second_tpu/models/voxelnet.py``).
+"""VoxelNet: VFE + middle (sparse or dense) + RPN, plus the loss and the
+predict post-process (twin of ``second_tpu/models/voxelnet.py``).
 
 ``VoxelNet`` is the network forward, voxels -> preds [B, A, ...];
 ``ModelSpec`` holds the loss and post-process settings built once from
@@ -117,16 +117,25 @@ class VoxelNet(nn.Module):
             box_code_size=box_code_size,
             num_direction_bins=num_direction_bins)
 
-    def forward(self, voxels, num_points, coords, sparse_plan):
-        """voxels [B, V, T, F], num_points [B, V], coords [B, V, 3] zyx
-        sorted by linear id; sparse_plan: the host plan (see
-        ``sparse_middle.build_host_plan``) batched on the device."""
+    def forward(self, voxels, num_points, coords, sparse_plan=None):
+        """voxels [B, V, T, F], num_points [B, V], coords [B, V, 3] zyx;
+        sparse_plan: for a sparse middle, the host plan (see
+        ``sparse_middle.build_host_plan``) batched on the device, with
+        the voxels sorted by linear id; None (or empty) for a dense
+        middle."""
         voxel_features = self.voxel_feature_extractor(
             voxels, num_points, coords)
-        spatial = self.middle_feature_extractor(
-            voxel_features, coords, sparse_plan)
+        if not sparse_plan:
+            spatial = self.middle_feature_extractor(voxel_features, coords)
+        else:
+            spatial = self.middle_feature_extractor(
+                voxel_features, coords, sparse_plan)
+        return self.rpn_preds(spatial)
+
+    def rpn_preds(self, spatial):
+        """The RPN on the BEV map [B, C, H, W] -> preds [B, A, ...]."""
         preds = self.rpn(spatial)
-        b = voxels.shape[0]
+        b = spatial.shape[0]
         cls_size = (self.num_class if self.encode_background_as_zeros
                     else self.num_class + 1)
         out = {
@@ -144,7 +153,8 @@ def init_weights(net, generator):
     """Random weights from ``generator`` (a CPU ``torch.Generator``),
     distributed as the JAX package initialises them: sparse conv
     weights [K, Cin, Cout] normal with variance 1/(K*Cin), dense convs
-    LeCun truncated normal, biases zero, batch norm at identity."""
+    and linear layers LeCun truncated normal, biases zero, batch norm at
+    identity."""
 
     def draw(shape, std, truncated):
         t = torch.empty(shape)
@@ -158,9 +168,12 @@ def init_weights(net, generator):
         return t
 
     for module in net.modules():
-        if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
-            ks = module.kernel_size
-            fan_in = module.in_channels * ks[0] * ks[1]
+        if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if isinstance(module, nn.Linear):
+                fan_in = module.in_features
+            else:
+                ks = module.kernel_size
+                fan_in = module.in_channels * ks[0] * ks[1]
             module.weight.copy_(
                 draw(module.weight.shape, fan_in ** -0.5, True))
             if module.bias is not None:
@@ -260,8 +273,12 @@ def _single_frame_predict(spec: ModelSpec, box_preds, cls_preds, dir_preds,
                                  device=box_preds.device)
     else:
         top_scores, top_labels = torch.max(total_scores, dim=-1)
+    # (x, y, w, l, r) by slices: a list index would copy from the host,
+    # which a CUDA graph cannot capture
+    bev_boxes = torch.cat(
+        [box_preds[:, 0:2], box_preds[:, 3:5], box_preds[:, 6:7]], dim=-1)
     idx, valid = nms_bev(
-        box_preds[:, [0, 1, 3, 4, 6]], top_scores,
+        bev_boxes, top_scores,
         pre_max_size=spec.nms_pre_max_sizes[0],
         post_max_size=spec.nms_post_max_sizes[0],
         iou_threshold=spec.nms_iou_thresholds[0],
@@ -282,11 +299,9 @@ def _single_frame_predict(spec: ModelSpec, box_preds, cls_preds, dir_preds,
         boxes = torch.cat([boxes[..., :6], yaw[..., None], boxes[..., 7:]],
                           dim=-1)
     if len(spec.post_center_range) > 0:
-        pcr = torch.tensor(spec.post_center_range, dtype=boxes.dtype,
-                           device=boxes.device)
-        in_range = ((boxes[:, :3] >= pcr[:3]).all(dim=1)
-                    & (boxes[:, :3] <= pcr[3:]).all(dim=1))
-        valid = valid & in_range
+        lo, hi = spec.post_center_range[:3], spec.post_center_range[3:]
+        for i in range(3):
+            valid = valid & (boxes[:, i] >= lo[i]) & (boxes[:, i] <= hi[i])
     return {
         "box3d_lidar": boxes,
         "scores": torch.where(valid, scores, 0.0),

@@ -23,6 +23,15 @@ def _standup_iou(boxes_standup):
     return inter / torch.where(union <= 0, torch.ones_like(union), union)
 
 
+def candidate_iou(boxes, rotated):
+    """Pairwise BEV IoU of [n, 5] boxes (x, y, w, l, r): of the rotated
+    boxes (K3), or of their axis-aligned standup boxes."""
+    if rotated:
+        return cuda_iou.rotated_iou_matrix(boxes, boxes)
+    corners = box_ops_torch.box_to_corners(boxes)
+    return _standup_iou(box_ops_torch.corner_to_standup(corners))
+
+
 def nms_bev(boxes, scores, pre_max_size, post_max_size, iou_threshold,
             score_threshold=0.0, rotated=True):
     """boxes [A, 5] (x, y, w, l, r), scores [A] (-inf = masked anchor).
@@ -40,12 +49,7 @@ def nms_bev(boxes, scores, pre_max_size, post_max_size, iou_threshold,
         cand_valid = top_scores >= score_threshold
     else:
         cand_valid = top_scores > -float("inf")
-    cand_boxes = boxes[top_idx].contiguous()
-    if rotated:
-        iou = cuda_iou.rotated_iou_matrix(cand_boxes, cand_boxes)
-    else:
-        corners = box_ops_torch.box_to_corners(cand_boxes)
-        iou = _standup_iou(box_ops_torch.corner_to_standup(corners))
+    iou = candidate_iou(boxes[top_idx].contiguous(), rotated)
     keep = cuda_nms.greedy_suppress(iou, cand_valid, iou_threshold)
     # ranks of the kept candidates in order, k (= none) after them:
     # nonzero(size=post_max_size) without a host sync

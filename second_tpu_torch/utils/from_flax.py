@@ -13,8 +13,9 @@ Inverts the layout table of ``second_tpu/utils/checkpoint_import.py``
 
 Module names map one to one (the port keeps the flax names), except
 flax's auto-named children: ``ConvBNReLU_{n}`` -> ``layers.{n}``,
-``Conv_0``/``ConvTranspose_0`` -> ``conv``, ``MaskedBatchNorm_0`` ->
-``bn``, ``Dense_0`` -> ``linear``.
+``PFNLayer_{n}`` -> ``pfn_layers.{n}``, ``Conv_0``/``ConvTranspose_0``
+-> ``conv``, ``MaskedBatchNorm_0`` -> ``bn``, ``Dense_0`` -> ``linear``,
+``LinearBNReLU_0`` -> ``linear_bn_relu``.
 """
 
 import re
@@ -23,7 +24,10 @@ import numpy as np
 import torch
 
 _CHILD = {"Conv_0": "conv", "ConvTranspose_0": "conv",
-          "MaskedBatchNorm_0": "bn", "Dense_0": "linear"}
+          "MaskedBatchNorm_0": "bn", "Dense_0": "linear",
+          "LinearBNReLU_0": "linear_bn_relu"}
+# flax's auto-named lists of children -> the port's ModuleLists
+_LISTS = {"ConvBNReLU": "layers", "PFNLayer": "pfn_layers"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -38,8 +42,9 @@ def _flatten(tree, prefix=()):
 def _module_path(path):
     out = []
     for part in path:
-        m = re.fullmatch(r"ConvBNReLU_(\d+)", part)
-        out.append(f"layers.{m.group(1)}" if m else _CHILD.get(part, part))
+        m = re.fullmatch(r"(ConvBNReLU|PFNLayer)_(\d+)", part)
+        out.append(f"{_LISTS[m.group(1)]}.{m.group(2)}" if m
+                   else _CHILD.get(part, part))
     return ".".join(out)
 
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, at the car.fhd main path's shapes. Every test here is marked
-``cuda`` and skips without a CUDA device.
+card, at the car.fhd main path's shapes, and the PointPillars flat
+pillar path on the card against the CPU at xyres_16's. Every test here
+is marked ``cuda`` and skips without a CUDA device.
 
 This file imports no JAX, so it runs on a GPU machine without it
 (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
@@ -14,7 +15,9 @@ calls; rows that miss at every offset exactly the bias or zero; K2
 order), and bitwise equal across two calls; K3 1e-5 against the plain
 version on the card (fp32 rounding of the same arithmetic), exactly 0.0
 where the far-pair reject applies, and bitwise equal across two calls;
-K4 exact (a keep mask).
+K4 exact (a keep mask). The pillarizer and the voxelizer: exact
+(integer outputs, the sorted points); the flat PFN canvas 1e-5 (the
+per-pillar sums add with atomics on the card).
 """
 
 import numpy as np
@@ -27,7 +30,17 @@ from second_tpu_torch.ops import (
     cuda_sparse_conv,
     cuda_sparse_conv_dw,
 )
+from second_tpu_torch.data import make_kitti_scene
+from second_tpu_torch.models import pp_fast
+from second_tpu_torch.models.registry import get_vfe_class
 from second_tpu_torch.ops import sparse as tsparse
+from second_tpu_torch.ops import voxelize as tvox
+
+# xyres_16's pillar geometry: a [432, 496, 1] grid, T = 100
+PP_VOXEL = (0.16, 0.16, 4.0)
+PP_RANGE = (0.0, -39.68, -3.0, 69.12, 39.68, 1.0)
+PP_GRID = (432, 496, 1)
+PP_T = 100
 
 
 def _random_boxes(rng, n, spread=10.0):
@@ -314,3 +327,67 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="bool"):
         cuda_nms.greedy_suppress(torch.zeros(4, 4, device=cuda_device),
                                  torch.zeros(4, device=cuda_device), 0.5)
+
+
+def _pp_points(seed, rows=32768):
+    """A ``make_kitti_scene`` frame in xyres_16's padded points buffer,
+    plus 150 points in one pillar (more than its T slots) and 200 on
+    cell boundaries (float32 multiples of 0.16 m from the corner)."""
+    rng = np.random.RandomState(seed)
+    cells = rng.randint(0, 432, (200, 2)).astype(np.float32)
+    step = np.float32(0.16)
+    points = np.concatenate([
+        make_kitti_scene(rng)[0],
+        rng.uniform([4.97, 0.97, -1.5, 0], [5.11, 1.11, 0.5, 1], (150, 4)),
+        np.stack([step * cells[:, 0], np.float32(-39.68) + step * cells[:, 1],
+                  rng.uniform(-1.7, -0.2, 200), rng.uniform(0, 1, 200)], 1),
+    ]).astype(np.float32)
+    buf = np.zeros((rows, 4), np.float32)
+    buf[:len(points)] = points
+    return torch.from_numpy(buf), len(points)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_voxels", [12000, 2000])  # fits; overflows
+def test_pillarize_and_voxelize_cuda_match_cpu(cuda_device, max_voxels):
+    pts, n = _pp_points(0)
+    args = (n, PP_VOXEL, PP_RANGE[:3], PP_GRID, max_voxels, PP_T)
+    flat_cpu = pp_fast.flat_pillarize(pts, *args)
+    flat_gpu = pp_fast.flat_pillarize(pts.to(cuda_device), *args)
+    for a, b in zip(flat_gpu, flat_cpu):
+        assert torch.equal(a.cpu(), b)
+    assert int(flat_cpu[4].max()) == PP_T
+    if max_voxels == 2000:
+        assert int(flat_cpu[5]) == 2000
+    vox_cpu = tvox.voxelize(pts, *args)
+    vox_gpu = tvox.voxelize(pts.to(cuda_device), *args)
+    for a, b in zip(vox_gpu, vox_cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_flat_pfn_bev_cuda_matches_cpu(cuda_device):
+    g = torch.Generator().manual_seed(0)
+    vfe = get_vfe_class("PillarFeatureNetOld")(
+        num_input_features=4, num_filters=(64,), voxel_size=PP_VOXEL,
+        pc_range=PP_RANGE).eval()
+    with torch.no_grad():
+        for name, p in vfe.state_dict().items():
+            if name.endswith("linear.weight"):
+                p.copy_(torch.randn(p.shape, generator=g) / p.shape[1] ** 0.5)
+            elif name.endswith("running_var") or name.endswith("bn.weight"):
+                p.copy_(torch.rand(p.shape, generator=g) + 0.5)
+            else:  # bn.bias, running_mean
+                p.copy_(torch.rand(p.shape, generator=g) * 0.2 - 0.1)
+    pts, n = _pp_points(1)
+    flat = pp_fast.flat_pillarize(pts, n, PP_VOXEL, PP_RANGE[:3], PP_GRID,
+                                  12000, PP_T)
+    with torch.no_grad():
+        ref = pp_fast.flat_pfn_bev(vfe, *flat[:5], max_points_per_voxel=PP_T,
+                                   grid_size=PP_GRID)
+        vfe.to(cuda_device)
+        out = pp_fast.flat_pfn_bev(
+            vfe, *(t.to(cuda_device) for t in flat[:5]),
+            max_points_per_voxel=PP_T, grid_size=PP_GRID)
+    assert ref.shape == (64, 496, 432) and ref.abs().max() > 1e-2
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=1e-5)
