@@ -10,7 +10,10 @@ the train reader's batch 8 through ``train.state.make_train_step``
 ``InferenceContext`` on the flat pillar path and PointPillars training
 through ``train.__main__.train`` (``configs/pointpillars/car/
 xyres_16.config``), then car.fhd training through ``train`` and
-``evaluate`` with the GT-database sampler. Phases 6-9 clear the sampler
+``evaluate`` with the GT-database sampler, and car.fhd on the device
+route (points shipped; the voxels and every rulebook built on the card)
+through ``InferenceContext``, ``train`` and ``evaluate``. Phases 6-9
+clear the sampler
 for ``make_kitti_scene`` frames, which have no database; the fixture
 trees of phases 9 and 10 have one. Phases, each printed as it runs:
 
@@ -90,7 +93,26 @@ trees of phases 9 and 10 have one. Phases, each printed as it runs:
      (rotated NMS: K3 and K4) into the official AP, peak memory;
      ``train(resume=True)`` for 2 more; ``evaluate()``; K1, K2, K3 and
      K4 launched; car.fhd's learning proof (``tools/overfit_ap.py
-     --model fhd``): bev and 3d AP >= 55.
+     --model fhd``): bev and 3d AP >= 55;
+ 11. car.fhd on the device route (``fhd_device``): 4 requests from
+     ``make_kitti_scene(RandomState(i))`` through
+     ``InferenceContext.build(..., device_voxelize=True)`` with phase
+     3's weights (shipped points, host preparation and device
+     inference); for each frame the card's voxel coords, every
+     ``plan_*`` rulebook and the stages' counts exactly the host plan's,
+     preds within ``ROUTE_REL_TOL`` of the host route's on the card,
+     detections matched, and both routes' H2D bytes; frame 0's
+     breakdown (H2D, the voxelizer, the rulebooks of each scale, each
+     route to detections, launched and as a CUDA-graph replay); on
+     phase 10's tree a sampled batch on the route (frame 0's loss card
+     against CPU, the host syncs of a batch-2 step: none allowed),
+     ``train(device_voxelize=True)`` 6 + 1 resumed steps at batch 8 with
+     the sampler and ``evaluate(device_voxelize=True)`` (K1-K4
+     launched), the most points a request shipped and the points
+     buffer's overflow warnings; then the other five sparse middles and
+     both sparse residual blocks, forward and backward in training mode
+     at a [800, 704] grid (z 41 or 81 cells), the two routes bitwise
+     equal on the card and the card against the CPU.
 
 Then the script's wall time, one JSON line with the kernels (``ms``
 times the wrapper,
@@ -100,7 +122,8 @@ training batch's 10; ``bound_ms`` is the fp32 bound and
 ``bound_tf32x3_ms`` the 3xTF32 one; K1's ``max_abs_err`` is its largest over phases 2
 and 6; K4's ``pp_candidates`` holds phase 8's numbers; ``launches`` count
 the main paths' runs, phases 3, 7, 8, 9 and 10's train() and evaluate()
-runs, with ``launches_by_path`` splitting them; ``proof_launches``
+runs and phase 11's requests, train() and evaluate() runs, with
+``launches_by_path`` splitting them; ``proof_launches``
 counts the two learning proofs apart), and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for the whole run (the
 slices are fp32). Any failed check raises, which exits non-zero; without
@@ -131,12 +154,25 @@ from second_tpu_torch.configs import load_pipeline_config, schema
 from second_tpu_torch.create_data import kitti_data_prep
 from second_tpu_torch.core.inference import (
     InferenceContext,
+    example_convert,
     example_to_device,
 )
 from second_tpu_torch.csrc import build
 from second_tpu_torch.data import make_kitti_scene, merge_second_batch
 from second_tpu_torch.data.kitti_dataset import KittiDataset
 from second_tpu_torch.models.middle import scatter_canvas
+from second_tpu_torch.models.registry import get_middle_class
+from second_tpu_torch.models.sparse_middle import (
+    SPARSE_MIDDLE_NAMES,
+    build_device_plan,
+    build_host_plan,
+    plan_scales,
+)
+from second_tpu_torch.models.sparse_resnet import (
+    SparseBasicBlock,
+    SparseBottleneck,
+)
+from second_tpu_torch.native import sparse_plan as native_plan
 from second_tpu_torch.models.pp_fast import (
     flat_pfn,
     flat_pfn_bev,
@@ -151,7 +187,14 @@ from second_tpu_torch.ops import (
     cuda_sparse_conv_dw,
 )
 from second_tpu_torch.ops.nms import candidate_iou
-from second_tpu_torch.ops.sparse import SparseConvFunction, transpose_rulebook
+from second_tpu_torch.ops.sparse import (
+    SparseConvFunction,
+    SparseGrid,
+    _kernel_offsets,
+    build_subm_rulebook,
+    from_voxel_coords,
+    transpose_rulebook,
+)
 from second_tpu_torch.ops.voxelize import voxelize
 from second_tpu_torch.tools import overfit_ap
 from second_tpu_torch.tools.kitti_fixture import build_kitti_dir
@@ -224,6 +267,15 @@ FHD_SCENE = dict(num_cars=10, num_bg_points=16000, points_per_object=250)
 FHD_TRAIN_STEPS = 8
 FHD_RESUME_STEPS = 2
 FHD_PROOF_STEPS = 1000
+# car.fhd on the device route (phase 11): train() steps and resumed
+# steps on phase 10's tree; the other middles' and the residual blocks'
+# voxel capacity; preds of the device route against the host route on
+# the card (max |diff| over max |value|): the same voxels in the same
+# order, the same rulebooks and kernels
+FHD_DEVICE_STEPS = 6
+FHD_DEVICE_RESUME = 1
+MODULE_VOXELS = 20000
+ROUTE_REL_TOL = 1e-5
 
 # the card's published peaks (H100 SXM at 700 W): fp32 outside the
 # tensor cores, TF32 on them and HBM bandwidth, for each kernel's least
@@ -268,6 +320,10 @@ PATH_KERNELS = {
     # car.fhd's train() steps (K1, K2), its evals and evaluate() (K3, K4)
     "fhd_train": ("sparse_conv_gather_gemm", "sparse_conv_weight_grad",
                   "rotated_iou", "greedy_nms"),
+    # phase 11: car.fhd's requests, train() steps and evals on the device
+    # route
+    "fhd_device": ("sparse_conv_gather_gemm", "sparse_conv_weight_grad",
+                   "rotated_iou", "greedy_nms"),
 }
 # the learning proofs (tools/overfit_ap.run), counted apart from the
 # main paths
@@ -1436,20 +1492,31 @@ def phase_pp_train(device):
     return launches, proof_launches
 
 
-def _loss_of(net, spec, example):
+def _loss_of(net, spec, example, voxelizer=None):
     """The loss of one training forward of a copy of ``net``."""
     with torch.no_grad():
-        return forward_loss(copy.deepcopy(net), spec, example)["loss"].item()
+        return forward_loss(copy.deepcopy(net), spec, example,
+                            voxelizer)["loss"].item()
 
 
-def fhd_step_checks(config, root, device):
+def fhd_step_checks(config, root, device, device_route=False):
     """A sampled car.fhd batch from the train reader: frame 0's loss on
-    the card against the CPU, and the host syncs of a batch-2 step."""
+    the card against the CPU, and the host syncs of a batch-2 step. The
+    device route ships points and compact targets; the step voxelizes
+    and builds the rulebooks on the device."""
+    label = "fhd device route" if device_route else "fhd"
     cfg = load_pipeline_config(config)
     parts = build_network(cfg, device)
     init_weights(parts["net"], torch.Generator().manual_seed(0))
     np.random.seed(0)
-    prep = build_prep_func(cfg.train_input_reader, parts, training=True)
+    kwargs = (dict(emit_points=POINTS_BUFFER, compact_targets=True)
+              if device_route else {})
+    prep = build_prep_func(cfg.train_input_reader, parts, training=True,
+                           **kwargs)
+    voxelizer = (make_voxelizer_fn(
+        parts["voxel_generator"],
+        cfg.train_input_reader.preprocess.max_number_of_voxels)
+        if device_route else None)
     dataset = KittiDataset(root_path=str(root), info_path=str(
         root / "kitti_infos_train.pkl"))
     inputs = [dataset.get_sensor_data(i) for i in range(2)]
@@ -1458,130 +1525,407 @@ def fhd_step_checks(config, root, device):
     frames = [prep(input_dict=d) for d in inputs]
     ms = (time.perf_counter() - t0) * 1e3 / 2
     batch = merge_second_batch(frames)
-    log(f"fhd sampled batch: {[len(f['gt_names']) for f in frames]} boxes "
-        f"after sampling (the frames' own {own}), "
+    shipped = (f"points shipped {batch['points_count'][:, 0].tolist()} of "
+               f"{POINTS_BUFFER}" if device_route else
+               f"active per stage {batch['sparse_active_counts'].tolist()}")
+    log(f"{label} sampled batch: {[len(f['gt_names']) for f in frames]} "
+        f"boxes after sampling (the frames' own {own}), "
         f"host preparation {ms:.3f} ms per frame, voxels "
-        f"{batch['num_voxels'][:, 0].tolist()}, active per stage "
-        f"{batch['sparse_active_counts'].tolist()}")
+        f"{batch['num_voxels'][:, 0].tolist()}, {shipped}")
     batch1 = {k: v[:1] for k, v in batch.items()
               if isinstance(v, np.ndarray)}
     loss_d = _loss_of(parts["net"], parts["spec"],
-                      example_to_device(batch1, device))
+                      example_to_device(batch1, device), voxelizer)
     cpu = build_network(cfg, "cpu")
     cpu["net"].load_state_dict(parts["net"].state_dict())
     loss_c = _loss_of(cpu["net"], cpu["spec"],
-                      example_to_device(batch1, "cpu"))
+                      example_to_device(batch1, "cpu"), voxelizer)
     rel = abs(loss_d - loss_c) / abs(loss_c)
-    log(f"fhd sampled batch 1: loss card {loss_d:.6f}, CPU {loss_c:.6f} "
-        f"(rel {rel:.3e})")
+    log(f"{label} sampled batch 1: loss card {loss_d:.6f}, CPU "
+        f"{loss_c:.6f} (rel {rel:.3e})")
     check(rel <= TRAIN_LOSS_REL_TOL,
-          f"fhd sampled loss card {loss_d} vs CPU {loss_c}: rel {rel}")
+          f"{label} sampled loss card {loss_d} vs CPU {loss_c}: rel {rel}")
     opt, lr_fn, mom_fn = opt_builder.build(
         cfg.train_config.optimizer, cfg.train_config.steps,
         list(parts["net"].parameters()))
-    step = make_train_step(parts["net"], parts["spec"], opt, lr_fn, mom_fn)
+    step = make_train_step(parts["net"], parts["spec"], opt, lr_fn, mom_fn,
+                           voxelizer=voxelizer)
     n, first = sync_count(step, example_to_device(batch, device))
-    log(f"fhd train step at batch 2: {n} host syncs under CUDA's sync "
+    log(f"{label} train step at batch 2: {n} host syncs under CUDA's sync "
         f"debug mode{first}")
-    check(n == 0, f"fhd train step: {n} host syncs{first}")
+    check(n == 0, f"{label} train step: {n} host syncs{first}")
 
 
-def phase_fhd_train(device):
+def fhd_train_runs(config, root, work, device, label, steps, resume_steps,
+                   device_voxelize="auto"):
+    """car.fhd through ``train`` (``steps`` steps with ``measure_time``),
+    ``train(resume=True)`` for ``resume_steps`` more, then ``evaluate``,
+    on the fixture tree at ``root``, each run ending in the official
+    eval (K3, K4). Returns the kernel launches of those runs."""
+    model_dir = work / f"model_{label}"
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    train(config, str(model_dir), display_step=1, measure_time=True,
+          device_voxelize=device_voxelize, device=device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    losses, step_ms, fetch_ms, evals, text = _log_steps(model_dir)
+    records = [json.loads(line) for line in
+               (model_dir / "log.json.lst").read_text().splitlines()]
+    util = [r["runtime.sparse_util_max"] for r in records]
+    loss = [losses[i] for i in range(1, steps + 1)]
+    check(all(np.isfinite(loss)), f"{label} train: non-finite loss {loss}")
+    check(loss[-1] < loss[0], f"{label} train: loss did not fall: {loss}")
+    check((model_dir / f"voxelnet-{steps}.ckpt").is_file(),
+          f"{label} train: no checkpoint at the last step")
+    check("Evaluation official" in text, f"{label} train: no official eval")
+    mid = range(2, steps)
+    log(f"{label} train(): {steps} steps at batch 8 with the "
+        f"sampler on {FHD_FRAMES} fixture frames, device_voxelize="
+        f"{device_voxelize}, wall {wall:.3f} s "
+        f"(with the final eval), loss {loss[0]:.6f} -> {loss[-1]:.6f} "
+        f"(all: {[round(v, 6) for v in loss]}), step ms "
+        f"(CUDA-synchronised) median of steps 2-{steps - 1} "
+        f"{statistics.median(step_ms[i] for i in mid):.3f} (all: "
+        f"{[round(step_ms[i], 3) for i in sorted(step_ms)]}), data-fetch "
+        f"ms median {statistics.median(fetch_ms[i] for i in mid):.3f} "
+        f"(all: {[round(fetch_ms[i], 3) for i in sorted(fetch_ms)]}), "
+        f"sparse_util_max {[round(u, 4) for u in util]} (overflow "
+        f"warnings: {text.count('OVERFLOW')}), {evals[-1]}, peak device "
+        f"memory {peak:.1f} MiB")
+
+    t0 = time.perf_counter()
+    total = steps + resume_steps
+    train(fixture_config(CONFIG, root, work / f"{label}_resume.config",
+                         total),
+          str(model_dir), resume=True, display_step=1, measure_time=True,
+          device_voxelize=device_voxelize, device=device)
+    losses, _, _, evals, text = _log_steps(model_dir)
+    check(sorted(losses) == list(range(1, total + 1)),
+          f"{label} resume: logged steps {sorted(losses)}")
+    check((model_dir / f"voxelnet-{total}.ckpt").is_file(),
+          f"{label} resume: no checkpoint")
+    check(text.count("Evaluation official") == 2,
+          f"{label} resume: no official eval")
+    log(f"{label} train(resume=True): restored step {steps}, "
+        f"steps {steps + 1}-{total} losses "
+        f"{[round(losses[i], 6) for i in range(steps + 1, total + 1)]}"
+        f", wall {time.perf_counter() - t0:.3f} s, {evals[-1]}")
+
+    t0 = time.perf_counter()
+    res = evaluate(config, str(model_dir),
+                   result_path=str(work / f"eval_{label}"),
+                   device_voxelize=device_voxelize, device=device)
+    wall = time.perf_counter() - t0
+    check("official" in res["results"], f"{label} evaluate: no official AP")
+    official = res["results"]["official"].splitlines()[:5]
+    log(f"{label} evaluate(): {FHD_FRAMES} frames in {wall:.3f} s "
+        f"({FHD_FRAMES / wall:.3f} fps with the set-up and the AP), "
+        f"random start + {total} steps: " + " | ".join(official))
+    return {name: module.launches for name, module, _, _ in KERNELS}
+
+
+def phase_fhd_train(device, work):
     """Phase 10: car.fhd training through the port's entry points with
-    the GT-database sampler. Returns the kernel launches of its train()
-    and evaluate() runs and, apart, of the learning proof."""
-    work = Path(tempfile.mkdtemp(prefix="fhd_train_"))
-    try:
-        root = fixture_tree(work, FHD_FRAMES, FHD_SCENE)
-        config = fixture_config(CONFIG, root, work / "fhd.config",
-                                FHD_TRAIN_STEPS)
-        fhd_step_checks(config, root, device)
+    the GT-database sampler, on a fixture tree made under ``work``.
+    Returns the kernel launches of its train() and evaluate() runs and,
+    apart, of the learning proof, and the tree's root."""
+    root = fixture_tree(work, FHD_FRAMES, FHD_SCENE)
+    config = fixture_config(CONFIG, root, work / "fhd.config",
+                            FHD_TRAIN_STEPS)
+    fhd_step_checks(config, root, device)
+    fhd_train_runs(config, root, work, device, "fhd", FHD_TRAIN_STEPS,
+                   FHD_RESUME_STEPS)
+    launches = read_launches("fhd_train")
+    log(f"fhd train: launches in the train() and evaluate() runs: "
+        f"{launches}")
 
-        model_dir = work / "model"
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        np.random.seed(0)
-        t0 = time.perf_counter()
-        train(config, str(model_dir), display_step=1, measure_time=True,
-              device=device)
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**20
-        losses, step_ms, fetch_ms, evals, text = _log_steps(model_dir)
-        records = [json.loads(line) for line in
-                   (model_dir / "log.json.lst").read_text().splitlines()]
-        util = [r["runtime.sparse_util_max"] for r in records]
-        loss = [losses[i] for i in range(1, FHD_TRAIN_STEPS + 1)]
-        check(all(np.isfinite(loss)), f"fhd train: non-finite loss {loss}")
-        check(loss[-1] < loss[0], f"fhd train: loss did not fall: {loss}")
-        check((model_dir / f"voxelnet-{FHD_TRAIN_STEPS}.ckpt").is_file(),
-              "fhd train: no checkpoint at the last step")
-        check("Evaluation official" in text, "fhd train: no official eval")
-        mid = range(2, FHD_TRAIN_STEPS)
-        log(f"fhd train(): {FHD_TRAIN_STEPS} steps at batch 8 with the "
-            f"sampler on {FHD_FRAMES} fixture frames, wall {wall:.3f} s "
-            f"(with the final eval), loss {loss[0]:.6f} -> {loss[-1]:.6f} "
-            f"(all: {[round(v, 6) for v in loss]}), step ms "
-            f"(CUDA-synchronised) median of steps 2-{FHD_TRAIN_STEPS - 1} "
-            f"{statistics.median(step_ms[i] for i in mid):.3f} (all: "
-            f"{[round(step_ms[i], 3) for i in sorted(step_ms)]}), data-fetch "
-            f"ms median {statistics.median(fetch_ms[i] for i in mid):.3f} "
-            f"(all: {[round(fetch_ms[i], 3) for i in sorted(fetch_ms)]}), "
-            f"sparse_util_max {[round(u, 4) for u in util]} (overflow "
-            f"warnings: {text.count('OVERFLOW')}), {evals[-1]}, peak device "
-            f"memory {peak:.1f} MiB")
+    reset_launches()
+    t0 = time.perf_counter()
+    proof = overfit_ap.run(steps=FHD_PROOF_STEPS,
+                           out=str(work / "proof"), device=device,
+                           model="fhd")
+    wall = time.perf_counter() - t0
+    proof_launches = read_launches("fhd_proof")
+    log(f"car.fhd learning proof (second_tpu_torch.tools.overfit_ap "
+        f"--model fhd, {FHD_PROOF_STEPS} steps, {proof['num_gt']} GT): "
+        f"bbox {proof['bbox']}, bev {proof['bev']}, 3d {proof['3d']}, "
+        f"aos {proof['aos']}; wall {wall:.3f} s; the tool's targets "
+        + ", ".join(f"{k} >= {v} "
+                    f"{'met' if proof[k] >= v else 'missed'}"
+                    for k, v in PROOF_TARGETS.items()))
+    check(proof["bev"] >= PROOF_FLOOR and proof["3d"] >= PROOF_FLOOR,
+          f"car.fhd learning proof: bev {proof['bev']}, 3d "
+          f"{proof['3d']} below {PROOF_FLOOR}")
+    log(f"car.fhd learning proof: launches {proof_launches}")
+    return launches, proof_launches, root
 
-        t0 = time.perf_counter()
-        total = FHD_TRAIN_STEPS + FHD_RESUME_STEPS
-        train(fixture_config(CONFIG, root, work / "fhd_resume.config",
-                             total),
-              str(model_dir), resume=True, display_step=1,
-              measure_time=True, device=device)
-        losses, _, _, evals, text = _log_steps(model_dir)
-        check(sorted(losses) == list(range(1, total + 1)),
-              f"fhd resume: logged steps {sorted(losses)}")
-        check((model_dir / f"voxelnet-{total}.ckpt").is_file(),
-              "fhd resume: no checkpoint")
-        check(text.count("Evaluation official") == 2,
-              "fhd resume: no official eval")
-        log(f"fhd train(resume=True): restored step {FHD_TRAIN_STEPS}, "
-            f"steps {FHD_TRAIN_STEPS + 1}-{total} losses "
-            f"{[round(losses[i], 6) for i in range(FHD_TRAIN_STEPS + 1, total + 1)]}"
-            f", wall {time.perf_counter() - t0:.3f} s, {evals[-1]}")
 
-        t0 = time.perf_counter()
-        res = evaluate(config, str(model_dir),
-                       result_path=str(work / "eval"), device=device)
-        wall = time.perf_counter() - t0
-        check("official" in res["results"], "fhd evaluate: no official AP")
-        official = res["results"]["official"].splitlines()[:5]
-        log(f"fhd evaluate(): {FHD_FRAMES} frames in {wall:.3f} s "
-            f"({FHD_FRAMES / wall:.3f} fps with the set-up and the AP), "
-            f"random start + {total} steps: " + " | ".join(official))
-        launches = read_launches("fhd_train")
-        log(f"fhd train: launches in the train() and evaluate() runs: "
-            f"{launches}")
+def _route_rel(a, b):
+    """max |a - b| over max |b|."""
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-12)).item()
 
-        reset_launches()
+
+def fhd_device_inference(ctx, device):
+    """Run 1 of phase 11: ``N_FRAMES`` car.fhd requests at full width
+    through ``InferenceContext(device_voxelize=True)``, the weights of
+    ``ctx`` (the host-plan route of phases 3-5). Returns the kernel
+    launches of the requests, and the most points a request shipped."""
+    dctx = InferenceContext()
+    dctx.build(CONFIG, device=device, device_voxelize=True)
+    dctx.parts["net"].load_state_dict(ctx.parts["net"].state_dict())
+    net, spec = dctx.parts["net"], dctx.parts["spec"]
+    max_voxels = ctx.config.eval_input_reader.preprocess.max_number_of_voxels
+    scales = plan_scales("SpMiddleFHD", dctx.parts["dense_shape"], max_voxels)
+    frames = [make_kitti_scene(np.random.RandomState(i))[0]
+              for i in range(N_FRAMES)]
+    reset_launches()
+    examples = []
+    for i, points in enumerate(frames):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        proof = overfit_ap.run(steps=FHD_PROOF_STEPS,
-                               out=str(work / "proof"), device=device,
-                               model="fhd")
-        wall = time.perf_counter() - t0
-        proof_launches = read_launches("fhd_proof")
-        log(f"car.fhd learning proof (second_tpu_torch.tools.overfit_ap "
-            f"--model fhd, {FHD_PROOF_STEPS} steps, {proof['num_gt']} GT): "
-            f"bbox {proof['bbox']}, bev {proof['bev']}, 3d {proof['3d']}, "
-            f"aos {proof['aos']}; wall {wall:.3f} s; the tool's targets "
-            + ", ".join(f"{k} >= {v} "
-                        f"{'met' if proof[k] >= v else 'missed'}"
-                        for k, v in PROOF_TARGETS.items()))
-        check(proof["bev"] >= PROOF_FLOOR and proof["3d"] >= PROOF_FLOOR,
-              f"car.fhd learning proof: bev {proof['bev']}, 3d "
-              f"{proof['3d']} below {PROOF_FLOOR}")
-        log(f"car.fhd learning proof: launches {proof_launches}")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return launches, proof_launches
+        example = dctx.get_inference_input_dict({}, points)
+        t1 = time.perf_counter()
+        dets = dctx.inference(example)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        boxes = dets[0]["box3d_lidar"]
+        check(boxes.ndim == 2 and boxes.shape[1] == 7
+              and np.isfinite(boxes).all(), f"device route frame {i}: bad "
+              f"boxes")
+        examples.append(example)
+        log(f"fhd device route frame {i}: {len(points)} points, "
+            f"{int(example['points_count'][0, 0])} shipped, "
+            f"{len(boxes)} detections, host prep {(t1 - t0) * 1e3:.3f} ms, "
+            f"device inference {(t2 - t1) * 1e3:.3f} ms, total "
+            f"{(t2 - t0) * 1e3:.3f} ms")
+    launches = {name: module.launches for name, module, _, _ in KERNELS}
+    log(f"fhd device route: launches in the {N_FRAMES} requests: "
+        f"{launches}")
+
+    for i, (points, example) in enumerate(zip(frames, examples)):
+        t0 = time.perf_counter()
+        host = ctx.get_inference_input_dict({}, points)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ex = example_to_device(example, device)
+        with torch.no_grad():
+            voxels, _, coords = dctx.voxelizer(ex["points"],
+                                               ex["points_count"])
+            grid = from_voxel_coords(voxels[..., 0, :1], coords,
+                                     scales[0]["shape"])
+            plan, counts = build_device_plan(grid, scales)
+        n = int(host["num_voxels"][0, 0])
+        check(np.array_equal(grid.coords[0].cpu().numpy(),
+                             host["coordinates"][0]),
+              f"device route frame {i}: voxel coords differ from the host's")
+        check(sorted(plan) == sorted(k for k in host
+                                     if k.startswith("plan_")),
+              f"device route frame {i}: plan keys {sorted(plan)}")
+        for key, value in plan.items():
+            check(np.array_equal(value[0].cpu().numpy(), host[key][0]),
+                  f"device route frame {i}: {key} differs from the host "
+                  f"plan's")
+        check(np.array_equal(counts.cpu().numpy(),
+                             host["sparse_active_counts"]),
+              f"device route frame {i}: counts {counts.tolist()} vs "
+              f"{host['sparse_active_counts'].tolist()}")
+        preds_d, dets_d = dctx.run(example)
+        preds_h, dets_h = ctx.run(host)
+        rel = max(_route_rel(preds_d[k], preds_h[k]) for k in preds_h)
+        frac, _, _ = _match(_ragged(dets_d), _ragged(dets_h))
+        check(rel <= ROUTE_REL_TOL,
+              f"device route frame {i}: preds rel err {rel} against the "
+              f"host route")
+        check(frac >= FRAME_MATCH_MIN,
+              f"device route frame {i}: detections matched {frac}")
+        h2d = {name: sum(v.nbytes for v in example_convert(e).values())
+               for name, e in (("device route", example), ("host route",
+                                                           host))}
+        log(f"fhd device route frame {i}: {n} voxels, coords, every "
+            f"plan_* key and the counts {counts[0].tolist()} equal to the "
+            f"host plan's; preds against the host route rel err "
+            f"{rel:.3e}, detections {int(dets_d['valid'].sum())} vs "
+            f"{int(dets_h['valid'].sum())} matched {frac:.4f}; host prep "
+            f"of the host route {host_ms:.3f} ms; H2D bytes "
+            + ", ".join(f"{k} {v}" for k, v in h2d.items()))
+
+    # frame 0, timed: the rulebooks per scale, and the device path
+    # launched and as a CUDA-graph replay (no host sync on it)
+    ex = example_to_device(examples[0], device)
+    host = example_to_device(ctx.get_inference_input_dict({}, frames[0]),
+                             device)
+    hplan = {k: v for k, v in host.items() if k.startswith("plan_")}
+    hnet = ctx.parts["net"]
+    with torch.no_grad():
+        voxels, num_points, coords = dctx.voxelizer(ex["points"],
+                                                    ex["points_count"])
+        feats = voxels[..., 0, :1]
+
+        def rulebooks(k):
+            grid = from_voxel_coords(feats, coords, scales[0]["shape"])
+            return build_device_plan(grid, scales[:k])
+
+        def device_route():
+            v, npts, c = dctx.voxelizer(ex["points"], ex["points_count"])
+            return predict(spec, net(v, npts, c), ex)
+
+        def host_route():
+            return predict(spec, hnet(host["voxels"], host["num_points"],
+                                      host["coordinates"], hplan), host)
+
+        host_np = ctx.get_inference_input_dict({}, frames[0])
+        parts = {"h2d device route": cuda_ms(
+            lambda: example_to_device(examples[0], device), iters=5,
+            warmup=2), "h2d host route": cuda_ms(
+            lambda: example_to_device(host_np, device), iters=5, warmup=2),
+            "voxelize": cuda_ms(lambda: dctx.voxelizer(
+                ex["points"], ex["points_count"]), iters=5, warmup=2)}
+        graphs = {"voxelize": graph_ms(lambda: dctx.voxelizer(
+            ex["points"], ex["points_count"]), iters=3, replays=3)}
+        built, built_graph = [0.0], [0.0]
+        for k in range(1, len(scales)):
+            if scales[k - 1]["dense"]:
+                break
+            built.append(cuda_ms(lambda: rulebooks(k), iters=5, warmup=2))
+            built_graph.append(graph_ms(lambda: rulebooks(k), iters=3,
+                                        replays=3))
+            parts[f"rulebooks scale {k - 1}"] = built[k] - built[k - 1]
+            graphs[f"rulebooks scale {k - 1}"] = (built_graph[k]
+                                                  - built_graph[k - 1])
+        parts["device route"] = cuda_ms(device_route, iters=5, warmup=2)
+        parts["host route"] = cuda_ms(host_route, iters=5, warmup=2)
+        graphs["device route"] = graph_ms(device_route, iters=3, replays=3)
+        graphs["host route"] = graph_ms(host_route, iters=3, replays=3)
+    log("fhd device route breakdown (ms launched, CUDA-synchronised, frame "
+        "0; each rulebook scale the growth of the builders' time with it; "
+        "each route voxels or uploaded voxels and plan -> detections): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    log("fhd device route, device-only (CUDA graph, frame 0): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in graphs.items()))
+    return launches, max(int(e["points_count"].max()) for e in examples)
+
+
+def _module_grads(module, out, g):
+    """The gradients of sum(out * g) over ``module``'s parameters."""
+    params = [p for p in module.parameters()]
+    return torch.autograd.grad((out * g).sum(), params)
+
+
+def fhd_device_modules(device):
+    """Run 3 of phase 11: the other five sparse middles and both sparse
+    residual blocks, forward and backward in training mode, on both
+    rulebook routes on the card and on the device route on the CPU, on
+    ``make_kitti_scene`` frame 5 voxelized at half car.fhd's xy
+    resolution ([800, 704]), z at 0.1 m (41 cells) or at 0.05 m (81: the
+    HRZ variants and 2K collapse 41)."""
+    points = torch.from_numpy(make_kitti_scene(np.random.RandomState(5))[0])
+    g = torch.Generator().manual_seed(5)
+
+    def voxel_coords(nz):
+        _, coords, _, _ = voxelize(points, points.shape[0],
+                                   (0.1, 0.1, 4.0 / nz), (0.0, -40.0, -3.0),
+                                   (704, 800, nz), MODULE_VOXELS, 1)
+        return coords, (nz + 1, 800, 704)
+
+    for name in sorted(SPARSE_MIDDLE_NAMES - {"SpMiddleFHD"}):
+        nz = 80 if ("HRZ" in name or "2K" in name) else 40
+        coords, shape = voxel_coords(nz)
+        feats = torch.randn(MODULE_VOXELS, 4, generator=g)
+        middle = get_middle_class(name)((1, nz, 800, 704, 4),
+                                        num_input_features=4)
+        init_weights(middle, torch.Generator().manual_seed(0))
+        scales = plan_scales(name, (1, nz, 800, 704, 4), MODULE_VOXELS)
+        grid = from_voxel_coords(feats[None], coords[None], shape)
+        hplan = build_host_plan(grid.coords[0].numpy(), scales)
+        runs = {}
+        for label, dev, plan in (
+                ("card device route", device, None),
+                ("card host route", device, hplan), ("cpu", "cpu", None)):
+            mod = copy.deepcopy(middle).to(dev).train()
+            p = None if plan is None else {
+                k: torch.from_numpy(v)[None].to(dev) for k, v in plan.items()}
+            out = mod(grid.features.to(dev), grid.coords.to(dev), p)
+            gout = torch.randn(out.shape, generator=torch.Generator()
+                               .manual_seed(1)).to(dev)
+            runs[label] = (out.detach().cpu(),
+                           [x.cpu() for x in _module_grads(mod, out, gout)])
+        _compare_runs(name, runs, int((coords[:, 0] >= 0).sum()))
+
+    coords, shape = voxel_coords(40)
+    grid = from_voxel_coords(torch.randn(1, MODULE_VOXELS, 16, generator=g),
+                             coords[None], shape)
+    slots, _ = build_subm_rulebook(grid, (3, 3, 3))
+    hslots = torch.from_numpy(native_plan.subm_plan(
+        grid.coords[0].numpy(), shape, _kernel_offsets((3, 3, 3)) - 1))[None]
+    for block in (SparseBasicBlock(16, 32), SparseBottleneck(16, 16)):
+        init_weights(block, torch.Generator().manual_seed(0))
+        runs = {}
+        for label, dev, rule in (("card device route", device, None),
+                                 ("card host route", device, hslots),
+                                 ("cpu", "cpu", slots)):
+            mod = copy.deepcopy(block).to(dev).train()
+            gd = SparseGrid(*(t.to(dev) for t in grid[:3]), grid.shape)
+            rule = (build_subm_rulebook(gd, (3, 3, 3))[0] if rule is None
+                    else rule.to(dev))
+            out = mod(gd, rule).features
+            gout = torch.randn(out.shape, generator=torch.Generator()
+                               .manual_seed(1)).to(dev)
+            runs[label] = (out.detach().cpu(),
+                           [x.cpu() for x in _module_grads(mod, out, gout)])
+        _compare_runs(type(block).__name__, runs,
+                      int(grid.valid.sum()))
+
+
+def _compare_runs(name, runs, active):
+    """Both routes on the card agree bitwise; the card against the CPU:
+    outputs within PREDS_REL_TOL of their largest magnitude, gradients
+    within TRAIN_GRAD_L2_TOL in L2."""
+    out_d, grads_d = runs["card device route"]
+    out_h, grads_h = runs["card host route"]
+    out_c, grads_c = runs["cpu"]
+    same = torch.equal(out_d, out_h) and all(
+        torch.equal(a, b) for a, b in zip(grads_d, grads_h))
+    check(same, f"{name}: the device and host routes differ on the card")
+    rel = _route_rel(out_d, out_c)
+    l2 = max(((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+             for a, b in zip(grads_d, grads_c))
+    check(rel <= PREDS_REL_TOL, f"{name}: card vs CPU rel err {rel}")
+    check(l2 <= TRAIN_GRAD_L2_TOL, f"{name}: card vs CPU gradient L2 {l2}")
+    log(f"{name}: {active} active voxels, out {tuple(out_d.shape)}, "
+        f"forward and backward in training mode: device route == host "
+        f"route on the card (bitwise), card vs CPU out rel err {rel:.3e}, "
+        f"gradients worst L2 {l2:.3e} over {len(grads_d)} tensors")
+
+
+def phase_fhd_device(ctx, device, root, work):
+    """Phase 11: car.fhd on the device route (points shipped, voxels and
+    rulebooks built on the card). Returns the kernel launches of its
+    requests, train() and evaluate() runs."""
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        inf_launches, most = fhd_device_inference(ctx, device)
+        config = fixture_config(CONFIG, root, work / "fhd_device.config",
+                                FHD_DEVICE_STEPS)
+        fhd_step_checks(config, root, device, device_route=True)
+        train_launches = fhd_train_runs(
+            config, root, work, device, "fhd_device", FHD_DEVICE_STEPS,
+            FHD_DEVICE_RESUME, device_voxelize=True)
+    overflows = [w for w in rec if "emit_points buffer overflow"
+                 in str(w.message)]
+    launches = {k: inf_launches[k] + train_launches[k] for k in inf_launches}
+    for kernel in PATH_KERNELS["fhd_device"]:
+        check(launches[kernel] > 0,
+              f"the fhd_device path never launched {kernel}")
+    log(f"fhd device route: launches in the requests, train() and "
+        f"evaluate() runs: {launches}; most points a request shipped "
+        f"{most} of {POINTS_BUFFER}; points buffer overflow warnings "
+        f"{len(overflows)}")
+    fhd_device_modules(device)
+    log(f"phase 11 (fhd_device): {time.perf_counter() - t0:.3f} s")
+    return launches
 
 
 def main():
@@ -1619,7 +1963,13 @@ def main():
         phase_pp(device))
     proofs = {}
     launches["pp_train"], proofs["pp_proof"] = phase_pp_train(device)
-    launches["fhd_train"], proofs["fhd_proof"] = phase_fhd_train(device)
+    work = Path(tempfile.mkdtemp(prefix="fhd_train_"))
+    try:
+        launches["fhd_train"], proofs["fhd_proof"], root = phase_fhd_train(
+            device, work)
+        launches["fhd_device"] = phase_fhd_device(ctx, device, root, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     kernels = []
     for name, _, source, replaces in KERNELS:

@@ -11,8 +11,10 @@ with nvcc at first use.
 Layout (mirrors ``second_tpu``):
   csrc/      CUDA sources (*.cu) and their nvcc/ctypes build
   ops/       kernel wrappers (cuda_*.py) with plain PyTorch versions,
-             sparse grids, box math, NMS
-  models/    nn.Modules: SimpleVoxel, SpMiddleFHD, RPNV2, VoxelNet
+             sparse grids and their device rulebook builders, box math,
+             NMS
+  models/    nn.Modules: SimpleVoxel, the sparse middles, the sparse
+             residual blocks, RPNV2, VoxelNet
   builders/  config -> network, ModelSpec, anchors, losses
   configs/   text-proto config parser + typed schema
   core/      host numpy: boxes, anchors, targets, augmentation;

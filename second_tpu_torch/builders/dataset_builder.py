@@ -24,9 +24,11 @@ def build_prep_func(input_reader_config: schema.InputReader, parts,
     """``prep_pointcloud`` bound to the reader's preprocess settings and
     the network ``parts`` of ``build_network``; sparse middles get the
     host rulebooks (``sparse_plan_scales`` at the reader's voxel
-    capacity), dense ones none; a training reader that names a
-    GT-database sampler gets it. ``emit_points`` and ``compact_targets``
-    as ``prep_pointcloud`` takes them."""
+    capacity) unless the example ships points (``emit_points`` > 0: the
+    device builds the rulebooks, and no planner runs), dense ones none;
+    a training reader that names a GT-database sampler gets it.
+    ``emit_points`` and ``compact_targets`` as ``prep_pointcloud`` takes
+    them."""
     prep_cfg = input_reader_config.preprocess
     sampler_cfg = prep_cfg.database_sampler
     db_sampler = None
@@ -41,7 +43,7 @@ def build_prep_func(input_reader_config: schema.InputReader, parts,
     model_cfg = parts["model_cfg"]
     middle_name = model_cfg.middle_feature_extractor.module_class_name
     sparse_plan_scales = None
-    if middle_name in SPARSE_MIDDLE_NAMES:
+    if middle_name in SPARSE_MIDDLE_NAMES and not emit_points:
         sparse_plan_scales = plan_scales(
             middle_name, parts["dense_shape"], prep_cfg.max_number_of_voxels)
     return partial(
@@ -94,22 +96,22 @@ def build(input_reader_config: schema.InputReader, parts, training,
     function.
 
     device_voxelize: ship the in-range points (``POINTS_BUFFER`` rows)
-    instead of the padded voxel buffer, for dense middles (PointPillars);
-    the step voxelizes on the device. In training such examples also
-    carry compact targets (int8 labels and the positive anchors' rows),
-    as the JAX package's ``build`` defaults them.
+    instead of the padded voxel buffer; the step voxelizes on the
+    device, and a sparse middle builds its rulebooks there (no host
+    planner runs: the JAX package's route without its planner). In
+    training such examples also carry compact targets (int8 labels and
+    the positive anchors' rows), as the JAX package's ``build`` defaults
+    them. Otherwise the examples ship host voxels, and for a sparse
+    middle the host plan.
     """
     dataset_cfg = input_reader_config.dataset
     model_cfg = parts["model_cfg"]
     dataset_cls = get_dataset_class(dataset_cfg.dataset_class_name)
     assert dataset_cls.NumPointFeatures == model_cfg.num_point_features
-    dense = (model_cfg.middle_feature_extractor.module_class_name
-             not in SPARSE_MIDDLE_NAMES)
-    ship_points = device_voxelize and dense
     prep_func = build_prep_func(
         input_reader_config, parts, training,
-        emit_points=POINTS_BUFFER if ship_points else 0,
-        compact_targets=ship_points and training)
+        emit_points=POINTS_BUFFER if device_voxelize else 0,
+        compact_targets=bool(device_voxelize) and training)
     return dataset_cls(
         info_path=dataset_cfg.kitti_info_path,
         root_path=dataset_cfg.kitti_root_path,

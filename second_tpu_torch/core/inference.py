@@ -11,7 +11,12 @@ Usage:
 
 The host side (voxelizer, anchors, rulebook planner) is the port's copy
 of the JAX package's framework-free numpy and C++; the network, decode
-and NMS run in PyTorch on ``device``.
+and NMS run in PyTorch on ``device``. A sparse middle (car.fhd) takes
+its rulebooks from the host planner by default; with
+``build(..., device_voxelize=True)`` the example ships the in-range
+points instead, and the device voxelizes them and builds every rulebook
+(the JAX package's route when its planner is absent). Neither falls
+back to the other.
 
 A PillarFeatureNet encoder on a dense middle (PointPillars) runs the
 flat pillar path (``models.pp_fast``), as the JAX package serves it:
@@ -30,9 +35,10 @@ from ..configs import load_pipeline_config
 from ..data import merge_second_batch
 from ..data.preprocess import pad_points
 from ..models.pp_fast import pointpillars_infer
-from ..models.sparse_middle import SPARSE_MIDDLE_NAMES
+from ..models.sparse_middle import SPARSE_MIDDLE_NAMES, warn_overflow
 from ..models.voxelnet import init_weights, predict
 from ..train import checkpoint as ckpt_lib
+from ..train.state import make_voxelizer_fn, plan_of
 from ..utils.from_flax import from_flax
 
 # the device-bound keys of a host batch and their dtypes (rulebooks,
@@ -70,22 +76,34 @@ class InferenceContext:
         self.prep_func = None
         self.device = None
         self.flat_pp = False
+        self.voxelizer = None
 
-    def build(self, config_path_or_config, device):
+    def build(self, config_path_or_config, device, device_voxelize=False):
+        """device_voxelize: ship the request's in-range points
+        (``POINTS_BUFFER`` rows) and voxelize them on the device, where a
+        sparse middle builds its rulebooks too; False ships the host's
+        voxels and, for a sparse middle, its host plan. PointPillars
+        networks run the flat pillar path on points either way."""
         if isinstance(config_path_or_config, str):
             self.config = load_pipeline_config(config_path_or_config)
         else:
             self.config = config_path_or_config
         self.device = torch.device(device)
         self.parts = build_network(self.config, self.device)
-        self.prep_func = build_prep_func(
-            self.config.eval_input_reader, self.parts, training=False)
         model_cfg = self.parts["model_cfg"]
         self.flat_pp = (
             model_cfg.middle_feature_extractor.module_class_name
             not in SPARSE_MIDDLE_NAMES
             and model_cfg.voxel_feature_extractor.module_class_name
             .startswith("PillarFeatureNet"))
+        ship_points = device_voxelize and not self.flat_pp
+        reader = self.config.eval_input_reader
+        self.prep_func = build_prep_func(
+            reader, self.parts, training=False,
+            emit_points=POINTS_BUFFER if ship_points else 0)
+        self.voxelizer = (make_voxelizer_fn(
+            self.parts["voxel_generator"],
+            reader.preprocess.max_number_of_voxels) if ship_points else None)
 
     def get_inference_input_dict(self, info, points):
         if self.parts is None:
@@ -142,24 +160,40 @@ class InferenceContext:
     def run(self, example):
         """A host batch (``get_inference_input_dict``) -> the network's
         preds and ``predict``'s fixed-size detections, on the device."""
+        return self._run(example)[:2]
+
+    def _run(self, example):
+        """(preds, detections, the sparse stages' device counts [B, S, 2]
+        where the device built the rulebooks, else None)."""
         ex = example_to_device(example, self.device)
         net, spec = self.parts["net"], self.parts["spec"]
         if self.flat_pp:
             return pointpillars_infer(
                 net, spec, ex, gen=self.parts["voxel_generator"],
                 max_voxels=(self.config.eval_input_reader.preprocess
-                            .max_number_of_voxels))
-        plan = {k: v for k, v in ex.items() if k.startswith("plan_")}
+                            .max_number_of_voxels)) + (None,)
+        inter = {}
         with torch.no_grad():
-            preds = net(ex["voxels"], ex["num_points"], ex["coordinates"],
-                        plan)
+            if self.voxelizer is not None:
+                voxels, num_points, coords = self.voxelizer(
+                    ex["points"], ex["points_count"])
+            else:
+                voxels, num_points, coords = (
+                    ex["voxels"], ex["num_points"], ex["coordinates"])
+            preds = net(voxels, num_points, coords, plan_of(ex), inter)
             dets = predict(spec, preds, ex)
-        return preds, dets
+        return preds, dets, inter.get("sparse_active_counts")
 
     def inference(self, example):
-        """Returns ragged per-frame detection dicts."""
-        _, dets = self.run(example)
+        """Returns ragged per-frame detection dicts. A sparse stage that
+        dropped voxels on the device route warns, as the host planner
+        does."""
+        _, dets, active = self._run(example)
         dets = {k: v.cpu().numpy() for k, v in dets.items()}
+        if active is not None:
+            for i, (total, cap) in enumerate(active.cpu().numpy().max(0)):
+                if total > cap:
+                    warn_overflow(i, int(total), int(cap))
         out = []
         for b in range(dets["box3d_lidar"].shape[0]):
             valid = dets["valid"][b]

@@ -1,9 +1,19 @@
-"""Sparse 3D middle extractor SpMiddleFHD (twin of the plan path of
-``second_tpu/models/sparse_middle.py``).
+"""Sparse 3D middle extractors, the SECOND middle family (twin of
+``second_tpu/models/sparse_middle.py``): SpMiddleFHD, SpMiddleFHDPeople,
+SpMiddleFHDLite, SpMiddleFHDLiteHRZ, SpMiddleFHDHRZ and SpMiddle2K.
 
-Scales 0-2 run submanifold and strided sparse convs over host-built
-rulebooks (:func:`build_host_plan`, the C++ planner of
-``second_tpu_torch.native.sparse_plan``) through the gather-GEMM kernel K1.
+Each scale runs submanifold convs and a closing strided conv through the
+gather-GEMM kernel K1, over rulebooks from one of two routes:
+
+* the host plan (:func:`build_host_plan`, the C++ planner of
+  ``second_tpu_torch.native.sparse_plan``), shipped with the example as
+  ``plan_*`` arrays and voxels sorted by linear id;
+* no plan (None or empty): :func:`build_device_plan` builds the same
+  rulebooks on the device from the voxel coords (``ops.sparse``'s
+  builders), as the JAX package does when it has no host plan. The
+  stages' (true active, capacity) counts then come back as a device
+  tensor.
+
 From ``dense_from_scale`` on, the convs run as masked dense ``conv3d``
 over the scattered grid: inactive inputs are zero, so a subm conv is
 ``mask * conv(x)``, and a strided conv's active set is every output
@@ -52,9 +62,7 @@ def _out_capacity(cur_cap, factor):
 
 
 def _down_out_shape(shape, kernel, stride, pad):
-    out = tuple(
-        (shape[a] + 2 * pad[a] - kernel[a]) // stride[a] + 1
-        for a in range(3))
+    out = sparse._down_shape(shape, kernel, stride, pad)
     if any(s <= 0 for s in out):
         raise ValueError(
             f"strided sparse conv collapses grid {tuple(shape)} -> {out} "
@@ -64,14 +72,18 @@ def _down_out_shape(shape, kernel, stride, pad):
 
 
 def plan_scales(middle_class_name, output_shape, max_voxels):
-    """Static per-scale planning info for the host rulebook planner, the
+    """Static per-scale planning info for either rulebook route, the
     same grouping and capacity schedule as the JAX package's.
 
     Returns a list of dicts: {"shape", "in_cap", "subm_kernels",
     "down": (kernel, stride, pad) | None, "out_cap", "out_shape",
     "dense"}.
     """
-    cls = get_middle_class(middle_class_name)
+    return _scales(get_middle_class(middle_class_name), output_shape,
+                   max_voxels)
+
+
+def _scales(cls, output_shape, max_voxels):
     nz, ny, nx = (int(v) for v in output_shape[1:4])
     shape = (nz + 1, ny, nx)
     cap = int(max_voxels)
@@ -137,7 +149,7 @@ def build_host_plan(coords, scales, return_counts=False):
                 sparse._kernel_offsets(kernel), sc["out_cap"])
             counts[i] = (total, sc["out_cap"])
             if total > sc["out_cap"]:
-                _warn_overflow(i, total, sc["out_cap"])
+                warn_overflow(i, total, sc["out_cap"])
             plan[f"plan_coords{i}"] = out_coords
             plan[f"plan_conv{i}"] = conv_slots
             coords = out_coords
@@ -146,10 +158,60 @@ def build_host_plan(coords, scales, return_counts=False):
     return plan
 
 
+def build_device_plan(grid, scales):
+    """The host plan's rulebooks built on the device (the twin of the
+    JAX package's plan-less ``SparseMiddleBase.__call__``).
+
+    grid: the input ``ops.sparse.SparseGrid`` at scales[0]'s shape.
+    Per scale one lookup answers the subm kernel's neighbours and the
+    closing strided conv's inputs, after
+    ``ops.sparse.downsample_active_set`` has cut that conv's output set
+    at the scale's capacity. Returns the plan dict of
+    :func:`build_host_plan`'s keys, batched [B, ...] (slots int32, a
+    miss V_i; coords int32), and the downsample stages' (true active,
+    capacity) counts [B, S, 2] int64, all on the grid's device and read
+    nowhere on the host.
+    """
+    plan, counts = {}, []
+    for i, sc in enumerate(scales):
+        if sc["dense"]:
+            break
+        if grid.shape != tuple(sc["shape"]):
+            raise ValueError(f"scale {i}: grid {grid.shape} is not the "
+                             f"plan's {sc['shape']}")
+        queries, out_grid = [], None
+        if sc["subm_kernels"]:
+            if len(sc["subm_kernels"]) != 1:
+                raise ValueError("one subm kernel per scale expected")
+            qlin, qok, _ = sparse.subm_queries(grid, sc["subm_kernels"][0])
+            queries.append((qlin, qok))
+        if sc["down"] is not None:
+            kernel, stride, pad = sc["down"]
+            out_grid, total = sparse.downsample_active_set(
+                grid, kernel, stride, pad, out_capacity=sc["out_cap"],
+                return_count=True)
+            counts.append(torch.stack(
+                [total, torch.full_like(total, sc["out_cap"])], -1))
+            dlin, dok, _ = sparse.sparse_conv_queries(
+                grid, out_grid, kernel, stride, pad)
+            queries.append((dlin, dok))
+        found = sparse.lookup_many(grid.lin, queries, grid.sentinel)
+        b, v = grid.lin.shape
+        # K1 takes contiguous slots; a batch's split answers are views
+        if sc["subm_kernels"]:
+            plan[f"plan_subm{i}"] = found[0][0].reshape(b, v, -1).contiguous()
+        if out_grid is not None:
+            plan[f"plan_coords{i}"] = out_grid.coords
+            plan[f"plan_conv{i}"] = found[-1][0].reshape(
+                b, sc["out_cap"], -1).contiguous()
+            grid = out_grid
+    return plan, (torch.stack(counts, 1) if counts else None)
+
+
 _overflow_warned = set()
 
 
-def _warn_overflow(scale_idx, total, cap):
+def warn_overflow(scale_idx, total, cap):
     """Once per scale: dropped voxels change detections silently
     otherwise."""
     if scale_idx in _overflow_warned:
@@ -165,6 +227,59 @@ def _warn_overflow(scale_idx, total, cap):
 
 # topology ops: ("subm", out_ch, kernel) | ("down", out_ch, kernel, stride, pad)
 FHD_TOPOLOGY = (
+    ("subm", 16, 3), ("subm", 16, 3),
+    ("down", 32, 3, 2, 1),
+    ("subm", 32, 3), ("subm", 32, 3),
+    ("down", 64, 3, 2, 1),
+    ("subm", 64, 3), ("subm", 64, 3), ("subm", 64, 3),
+    ("down", 64, 3, 2, (0, 1, 1)),
+    ("subm", 64, 3), ("subm", 64, 3), ("subm", 64, 3),
+    ("down", 64, (3, 1, 1), (2, 1, 1), 0),
+)
+
+
+FHD_PEOPLE_TOPOLOGY = (
+    ("subm", 16, 3), ("subm", 16, 3),
+    ("down", 32, 3, 2, 1),
+    ("subm", 32, 3), ("subm", 32, 3),
+    ("down", 64, 3, 2, (0, 1, 1)),
+    ("subm", 64, 3), ("subm", 64, 3), ("subm", 64, 3),
+    ("down", 64, (3, 1, 1), (2, 1, 1), 0),
+)
+
+FHD_LITE_TOPOLOGY = (
+    ("down", 16, 3, 2, 1),
+    ("down", 32, 3, 2, 1),
+    ("down", 64, 3, 2, (0, 1, 1)),
+    ("down", 64, (3, 1, 1), (2, 1, 1), 0),
+)
+
+# taller-z (HRZ) variants: 5 downsample stages
+FHD_LITE_HRZ_TOPOLOGY = (
+    ("down", 32, 3, 2, 1),
+    ("down", 64, 3, 2, 1),
+    ("down", 64, 3, 2, 1),
+    ("down", 64, (3, 1, 1), (2, 1, 1), 0),
+    ("down", 64, (3, 1, 1), (2, 1, 1), 0),
+)
+
+FHD_HRZ_TOPOLOGY = (
+    ("subm", 16, 3), ("subm", 16, 3),
+    ("down", 32, 3, 2, 1),
+    ("subm", 32, 3), ("subm", 32, 3),
+    ("down", 64, 3, 2, 1),
+    ("subm", 64, 3), ("subm", 64, 3),
+    ("down", 64, 3, 2, 1),
+    ("subm", 64, 3), ("subm", 64, 3),
+    ("down", 64, (3, 1, 1), (2, 1, 1), 0),
+    ("subm", 64, 3), ("subm", 64, 3),
+    ("down", 64, (3, 1, 1), (2, 1, 1), 0),
+)
+
+# 2k-resolution variant: an 8-channel stage up front
+MIDDLE_2K_TOPOLOGY = (
+    ("subm", 8, 3), ("subm", 8, 3),
+    ("down", 16, 3, 2, 1),
     ("subm", 16, 3), ("subm", 16, 3),
     ("down", 32, 3, 2, 1),
     ("subm", 32, 3), ("subm", 32, 3),
@@ -211,17 +326,27 @@ class SparseMiddleBase(nn.Module):
         return F.relu(getattr(self, f"bn{li}")(
             x, mask=mask, channel_dim=channel_dim))
 
-    def forward(self, voxel_features, coords, plan):
-        """voxel_features [B, V, C], coords [B, V, 3] int32 zyx sorted by
-        linear id, plan: the host plan's arrays batched [B, ...], slots
-        as int32 tensors on the features' device."""
-        if plan is None:
-            raise ValueError(
-                "SparseMiddle needs the host rulebook plan (build_host_plan); "
-                "on-device rulebook building is not ported")
+    def forward(self, voxel_features, coords, plan=None, intermediates=None):
+        """voxel_features [B, V, C], coords [B, V, 3] int32 zyx.
+
+        plan: the host plan's arrays batched [B, ...] as int32 tensors on
+        the features' device, the voxels sorted by linear id; None or
+        empty: the rulebooks are built on the device
+        (:func:`build_device_plan`, the voxels in any order), and a dict
+        ``intermediates`` receives the stages' counts [B, S, 2] under
+        "sparse_active_counts" (the JAX package sows them as
+        ``active_scale{i}``)."""
         nz, ny, nx = self.output_shape[1:4]
-        grid = sparse.from_sorted_voxel_coords(
-            voxel_features, coords, (nz + 1, ny, nx))
+        shape = (nz + 1, ny, nx)
+        if plan:
+            grid = sparse.from_sorted_voxel_coords(voxel_features, coords,
+                                                   shape)
+        else:
+            grid = sparse.from_voxel_coords(voxel_features, coords, shape)
+            plan, counts = build_device_plan(grid, _scales(
+                type(self), self.output_shape, grid.lin.shape[1]))
+            if intermediates is not None and counts is not None:
+                intermediates["sparse_active_counts"] = counts
         dense, mask = None, None
         li = 0
         for scale_idx, group in enumerate(_group_topology(self.topology)):
@@ -296,5 +421,47 @@ class SpMiddleFHD(SparseMiddleBase):
     dense_from_scale = 3
 
 
-# middle class names eligible for host-side sparse-conv planning
-SPARSE_MIDDLE_NAMES = frozenset({"SpMiddleFHD"})
+@register_middle
+class SpMiddleFHDPeople(SparseMiddleBase):
+    """3-stage variant for pedestrian and cyclist grids."""
+
+    topology = FHD_PEOPLE_TOPOLOGY
+    capacity_factors = (3.25, 1.1, 1.0)
+
+
+@register_middle
+class SpMiddleFHDLite(SparseMiddleBase):
+    """Downsample-only lite variant."""
+
+    topology = FHD_LITE_TOPOLOGY
+
+
+@register_middle
+class SpMiddleFHDLiteHRZ(SparseMiddleBase):
+    """Downsample-only, for a taller z grid."""
+
+    topology = FHD_LITE_HRZ_TOPOLOGY
+    capacity_factors = (3.25, 1.05, 0.6, 0.95, 0.95)
+
+
+@register_middle
+class SpMiddleFHDHRZ(SparseMiddleBase):
+    """FHD with 5 downsample stages, for a taller z grid."""
+
+    topology = FHD_HRZ_TOPOLOGY
+    capacity_factors = (3.25, 1.05, 0.6, 0.95, 0.95)
+
+
+@register_middle
+class SpMiddle2K(SparseMiddleBase):
+    """2k-resolution middle with an 8-channel full-resolution stage."""
+
+    topology = MIDDLE_2K_TOPOLOGY
+    capacity_factors = (3.25, 1.1, 1.1, 0.7, 0.9)
+
+
+# the sparse middle family: rulebooks from the host planner or the device
+SPARSE_MIDDLE_NAMES = frozenset({
+    "SpMiddleFHD", "SpMiddleFHDPeople", "SpMiddleFHDLite",
+    "SpMiddleFHDLiteHRZ", "SpMiddleFHDHRZ", "SpMiddle2K",
+})

@@ -20,6 +20,7 @@ from ..ops import box_ops_torch
 from ..ops import losses as L
 from ..ops.nms import nms_bev
 from .layers import MaskedBatchNorm
+from .sparse_middle import SparseMiddleBase
 from .registry import (
     get_middle_class,
     get_rpn_class,
@@ -117,19 +118,24 @@ class VoxelNet(nn.Module):
             box_code_size=box_code_size,
             num_direction_bins=num_direction_bins)
 
-    def forward(self, voxels, num_points, coords, sparse_plan=None):
-        """voxels [B, V, T, F], num_points [B, V], coords [B, V, 3] zyx;
-        sparse_plan: for a sparse middle, the host plan (see
+    def forward(self, voxels, num_points, coords, sparse_plan=None,
+                intermediates=None):
+        """voxels [B, V, T, F], num_points [B, V], coords [B, V, 3] zyx.
+
+        For a sparse middle, sparse_plan is the host plan (see
         ``sparse_middle.build_host_plan``) batched on the device, with
-        the voxels sorted by linear id; None (or empty) for a dense
-        middle."""
+        the voxels sorted by linear id; without one (None or empty) the
+        middle builds its rulebooks on the device and puts its stages'
+        counts into the dict ``intermediates``, when one is given. A
+        dense middle takes neither."""
         voxel_features = self.voxel_feature_extractor(
             voxels, num_points, coords)
-        if not sparse_plan:
-            spatial = self.middle_feature_extractor(voxel_features, coords)
+        middle = self.middle_feature_extractor
+        if isinstance(middle, SparseMiddleBase):
+            spatial = middle(voxel_features, coords, sparse_plan,
+                             intermediates)
         else:
-            spatial = self.middle_feature_extractor(
-                voxel_features, coords, sparse_plan)
+            spatial = middle(voxel_features, coords)
         return self.rpn_preds(spatial)
 
     def rpn_preds(self, spatial):

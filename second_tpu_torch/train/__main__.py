@@ -9,12 +9,17 @@ the batch is the reader's. Checkpoints keep the upstream JSON-manifest
 layout (``train/checkpoint.py``); the config is snapshotted into
 model_dir as pipeline.config.
 
-Dense middles (PointPillars): the loader ships the in-range points and
-compact targets, the step voxelizes on the device, the eval runs the
-flat pillar path. Sparse middles (car.fhd): the loader ships the host
-voxels and the host planner's ``plan_*`` rulebooks, and the loop logs
-the sparse stages' utilisation (``sparse_util_max``, with a warning
-when a stage dropped voxels). A training reader that names a
+``device_voxelize`` picks what the loader ships. "auto" (the default):
+for dense middles (PointPillars) the in-range points and compact
+targets, the step voxelizing on the device and the eval running the
+flat pillar path; for sparse middles (car.fhd) the host voxels and the
+host planner's ``plan_*`` rulebooks. True ships points for sparse
+middles too: the step voxelizes and builds every rulebook on the device
+(``--device_voxelize=True``). False ships host voxels for every middle.
+Neither route falls back to the other. For sparse middles the loop logs
+the stages' utilisation (``sparse_util_max``, with a warning when a
+stage dropped voxels), from the host plan's counts or the step's device
+counts, read at display steps. A training reader that names a
 GT-database sampler trains with it. These raise
 ``NotImplementedError`` (ROADMAP "Still to port"): ``use_banded``,
 ``quantize_points``, ``pretrained_*``, ``freeze_*``, ``profile_steps``
@@ -73,7 +78,8 @@ def _upload(host, device):
 def _build_all(config_path, device):
     """The config, ``build_network``'s parts, and whether the network is
     PointPillars-like (a PillarFeatureNet on a dense middle: the flat
-    pillar path) and whether its middle is sparse (host rulebooks)."""
+    pillar path) and whether its middle is sparse (rulebooks from the
+    host plan or the device)."""
     cfg = load_pipeline_config(config_path)
     parts = build_network(cfg, device)
     model_cfg = parts["model_cfg"]
@@ -82,6 +88,16 @@ def _build_all(config_path, device):
     sparse = (model_cfg.middle_feature_extractor.module_class_name
               in SPARSE_MIDDLE_NAMES)
     return cfg, parts, pillars and not sparse, sparse
+
+
+def _resolve_device_voxelize(device_voxelize, default):
+    """``device_voxelize`` as a bool: "auto" -> ``default``."""
+    if device_voxelize == "auto":
+        return default
+    if not isinstance(device_voxelize, bool):
+        raise ValueError(f"device_voxelize must be 'auto', True or False, "
+                         f"not {device_voxelize!r}")
+    return device_voxelize
 
 
 def _device_paths(parts, max_voxels, flat_pp):
@@ -126,20 +142,24 @@ def train(config_path,
           batch_size=None,
           num_workers=None,
           loader_mode="auto",
+          device_voxelize="auto",
           quantize_points=False,
           use_banded=False,
           device="cuda"):
     """Train a detector with the given pipeline config.
 
-    Dense middles (the PointPillars family): the loader ships each
-    frame's in-range points (``POINTS_BUFFER`` rows) and compact
-    targets; the step voxelizes on the device (``make_voxelizer_fn``)
-    and rebuilds the dense targets there; the eval runs the flat pillar
-    path. Sparse middles (car.fhd): the loader ships the host voxels and
-    rulebooks, uploaded like the rest (pinned, non-blocking, one thread
-    ahead); the eval runs the network's modules and ``predict``. The
-    eval (every ``steps_per_eval`` steps and at the end) reports the
-    official KITTI AP into log.txt.
+    device_voxelize "auto" ships, for dense middles (the PointPillars
+    family), each frame's in-range points (``POINTS_BUFFER`` rows) and
+    compact targets: the step voxelizes on the device
+    (``make_voxelizer_fn``) and rebuilds the dense targets there, and
+    the eval runs the flat pillar path; for sparse middles (car.fhd) the
+    host voxels and rulebooks, uploaded like the rest (pinned,
+    non-blocking, one thread ahead). True ships points for sparse
+    middles as well (the JAX package's route without its planner): the
+    step voxelizes and builds the rulebooks on the device. False ships
+    host voxels. The eval runs the network's modules and ``predict``
+    outside the flat pillar path; it (every ``steps_per_eval`` steps and
+    at the end) reports the official KITTI AP into log.txt.
 
     loader_mode: "auto" picks the loader's threads on CUDA: a forked
     worker is safe after CUDA is initialised only while it never touches
@@ -168,15 +188,15 @@ def train(config_path,
     net, spec = parts["net"], parts["spec"]
     train_cfg = cfg.train_config
 
-    # sparse middles need the host voxels for the rulebook planner
+    device_voxelize = _resolve_device_voxelize(device_voxelize, not sparse)
     dataset = dataset_builder.build(
         cfg.train_input_reader, parts, training=True,
-        device_voxelize=not sparse)
+        device_voxelize=device_voxelize)
     eval_dataset = dataset_builder.build(
         cfg.eval_input_reader, parts, training=False,
-        device_voxelize=not sparse)
+        device_voxelize=device_voxelize)
     voxelizer = eval_voxelizer = flat = None
-    if not sparse:
+    if device_voxelize:
         voxelizer, _ = _device_paths(
             parts, cfg.train_input_reader.preprocess.max_number_of_voxels,
             False)
@@ -216,7 +236,10 @@ def train(config_path,
     last_ckpt_time = time.time()
     t_step = time.time()
     anchors_dev = None
-    util_max = 0.0  # the sparse stages' utilisation since the last log
+    # the sparse stages' (true active, capacity) counts of the steps
+    # since the last log: the host plan's arrays or the step's device
+    # tensors, read at the display step
+    pending_counts = []
 
     def _prep(example):
         # anchors are the run-constant anchor cache repeated per example:
@@ -264,15 +287,18 @@ def train(config_path,
                 timer.end("train_step", sync=True)
                 step += 1
                 running.update(metrics.pop("cls_stats"))
+                active = metrics.pop("sparse_active_counts", active)
                 if active is not None:
-                    util_max = max(util_max, _sparse_utilisation(
-                        active, log, step))
+                    pending_counts.append(active)
                 if step % display_step == 0 or step == 1:
                     m = {k: float(v) for k, v in metrics.items()}
                     m.update(running.value())
-                    if active is not None:
-                        m["sparse_util_max"] = util_max
-                        util_max = 0.0
+                    if pending_counts:
+                        m["sparse_util_max"] = _sparse_utilisation(
+                            np.concatenate([np.asarray(
+                                c.cpu() if torch.is_tensor(c) else c)
+                                for c in pending_counts]), log, step)
+                        pending_counts.clear()
                     m["steps_per_sec"] = display_step / max(
                         time.time() - t_step, 1e-6)
                     t_step = time.time()
@@ -306,7 +332,7 @@ def train(config_path,
 
 def _sparse_utilisation(active, log, step):
     """The largest share of its capacity that a sparse stage's true
-    active set takes in this batch (``active``: [B, S, 2] of
+    active set takes in these examples (``active``: [N, S, 2] of
     (true_active, capacity)), with a warning in the log when a stage
     took more: the static capacities dropped voxels there."""
     util = active[..., 0] / np.maximum(active[..., 1], 1)
@@ -384,23 +410,29 @@ def evaluate(config_path,
              measure_time=False,
              batch_size=None,
              num_workers=None,
+             device_voxelize="auto",
              use_banded=False,
              device="cuda"):
     """Evaluate the latest (or given) checkpoint with the official AP.
-    PillarFeatureNet networks on dense middles ship points and run the
-    flat pillar path; every other network runs its modules on the host's
+
+    device_voxelize "auto": PillarFeatureNet networks on dense middles
+    ship points and run the flat pillar path; every other network runs
+    its modules on the host's voxels (and a sparse middle on the host
+    plan). True ships points to every network: the device voxelizes,
+    and a sparse middle builds its rulebooks there. False ships host
     voxels."""
     _unported(use_banded=use_banded)
     device = torch.device(device)
     model_dir = Path(model_dir)
     cfg, parts, flat_pp, _ = _build_all(config_path, device)
     net, spec = parts["net"], parts["spec"]
+    device_voxelize = _resolve_device_voxelize(device_voxelize, flat_pp)
     eval_dataset = dataset_builder.build(
         cfg.eval_input_reader, parts, training=False,
-        device_voxelize=flat_pp)
+        device_voxelize=device_voxelize)
     voxelizer, flat = (_device_paths(
-        parts, cfg.eval_input_reader.preprocess.max_number_of_voxels, True)
-        if flat_pp else (None, None))
+        parts, cfg.eval_input_reader.preprocess.max_number_of_voxels,
+        flat_pp) if device_voxelize else (None, None))
     batch_size = batch_size or cfg.eval_input_reader.batch_size
     num_workers = (
         num_workers

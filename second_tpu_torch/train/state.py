@@ -78,17 +78,27 @@ class TrainState:
     global_step: int = 0
 
 
+def plan_of(example):
+    """The example's host plan, or None where it ships none (the JAX
+    package's ``plan or None``): a sparse middle then builds its
+    rulebooks on the device."""
+    return {k: v for k, v in example.items() if k.startswith("plan_")} or None
+
+
 def forward_loss(net, spec, example, voxelizer=None):
     """The network in training mode (its batch statistics move) and
     ``compute_loss`` on a device batch (see :func:`make_train_step`):
     voxels, or points voxelized on the device by ``voxelizer``; dense
-    or compact targets."""
+    or compact targets. A sparse middle without a host plan adds its
+    stages' counts [B, S, 2] as "sparse_active_counts"."""
     example = _expand_targets(example, spec.box_code_size)
-    plan = {k: v for k, v in example.items() if k.startswith("plan_")}
     voxels, num_points, coords = _network_inputs(example, voxelizer)
     net.train()
-    preds = net(voxels, num_points, coords, plan)
-    return compute_loss(spec, preds, example)
+    inter = {}
+    preds = net(voxels, num_points, coords, plan_of(example), inter)
+    res = compute_loss(spec, preds, example)
+    res.update(inter)
+    return res
 
 
 def make_train_step(net, spec, optimizer, lr_fn, mom_fn, voxelizer=None):
@@ -106,7 +116,10 @@ def make_train_step(net, spec, optimizer, lr_fn, mom_fn, voxelizer=None):
     sparse middle), clips the global gradient norm to 10 and steps the
     optimizer at ``lr_fn`` / ``mom_fn`` of its update count, as optax's
     ``inject_hyperparams`` does (the first step uses ``lr_fn(0)``). No
-    host sync.
+    host sync. A sparse middle on an example without ``plan_*`` keys
+    builds its rulebooks on the device; its stages' counts [B, S, 2]
+    (true active, capacity) are then in the metrics as
+    "sparse_active_counts", on the device.
     """
     state = TrainState(net, optimizer)
     params = optimizer.params
@@ -133,6 +146,8 @@ def make_train_step(net, spec, optimizer, lr_fn, mom_fn, voxelizer=None):
         }
         if "dir_loss_reduced" in res:
             metrics["dir_loss"] = res["dir_loss_reduced"].detach()
+        if "sparse_active_counts" in res:
+            metrics["sparse_active_counts"] = res["sparse_active_counts"]
         with torch.no_grad():
             metrics["cls_stats"] = classification_metrics(
                 res["cls_preds"], labels,
@@ -151,7 +166,8 @@ def make_eval_step(net, spec, voxelizer=None, flat_pp=None):
     networks on point-shipping examples run the flat pillar path
     (``models.pp_fast.pointpillars_infer``: no [V, T, F] buffer); every
     other example runs the network's modules, on the voxels it ships or
-    on those ``voxelizer`` makes of its points.
+    on those ``voxelizer`` makes of its points (a sparse middle builds
+    its rulebooks on the device where the example ships no plan).
     """
 
     @torch.no_grad()
@@ -160,8 +176,8 @@ def make_eval_step(net, spec, voxelizer=None, flat_pp=None):
         if flat_pp is not None and "points" in example:
             return pointpillars_infer(net, spec, example, gen=flat_pp["gen"],
                                       max_voxels=flat_pp["max_voxels"])[1]
-        plan = {k: v for k, v in example.items() if k.startswith("plan_")}
         voxels, num_points, coords = _network_inputs(example, voxelizer)
-        return predict(spec, net(voxels, num_points, coords, plan), example)
+        return predict(spec, net(voxels, num_points, coords, plan_of(example)),
+                       example)
 
     return step

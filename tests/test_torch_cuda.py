@@ -391,3 +391,103 @@ def test_flat_pfn_bev_cuda_matches_cpu(cuda_device):
             max_points_per_voxel=PP_T, grid_size=PP_GRID)
     assert ref.shape == (64, 496, 432) and ref.abs().max() > 1e-2
     torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=1e-5)
+
+
+# car.fhd's voxel generator (configs/car.fhd.config)
+FHD_VOXEL = (0.05, 0.05, 0.1)
+FHD_RANGE = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
+FHD_GRID = (1408, 1600, 40)
+FHD_VOXELS = 40000
+FHD_T = 5
+
+
+def _fhd_coords(max_voxels=FHD_VOXELS):
+    """A ``make_kitti_scene`` frame voxelized at car.fhd's grid (CPU)."""
+    points = torch.from_numpy(make_kitti_scene(np.random.RandomState(3))[0])
+    keep = ((points[:, :3] >= torch.tensor(FHD_RANGE[:3]))
+            & (points[:, :3] < torch.tensor(FHD_RANGE[3:]))).all(1)
+    points = points[keep]
+    _, coords, _, _ = tvox.voxelize(points, points.shape[0], FHD_VOXEL,
+                                    FHD_RANGE[:3], FHD_GRID, max_voxels,
+                                    FHD_T)
+    return coords
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,nz,ny,nx", [
+    ("SpMiddleFHD", 40, 1600, 1408),        # car.fhd at full width
+    ("SpMiddleFHDPeople", 40, 1600, 1408),
+    ("SpMiddleFHDLite", 40, 1600, 1408),
+    ("SpMiddleFHDLiteHRZ", 80, 400, 352),   # taller z, random voxels
+    ("SpMiddleFHDHRZ", 80, 400, 352),
+    ("SpMiddle2K", 80, 400, 352),
+])
+def test_device_rulebooks_cuda_equal_cpu(cuda_device, name, nz, ny, nx):
+    """``build_device_plan`` on the card: every scale's coords, slots and
+    counts exactly the CPU's."""
+    from second_tpu_torch.models import sparse_middle as tsm
+
+    shape = (nz + 1, ny, nx)
+    if nz == 40:
+        coords = _fhd_coords()
+    else:
+        rng = np.random.RandomState(4)
+        lin = rng.choice(nz * ny * nx, 12000, replace=False)
+        coords = torch.full((FHD_VOXELS, 3), -1, dtype=torch.int32)
+        coords[:12000] = torch.from_numpy(np.stack(
+            [lin // (ny * nx), lin // nx % ny, lin % nx], -1).astype(np.int32))
+    scales = tsm.plan_scales(name, (1, nz, ny, nx, 4), FHD_VOXELS)
+    plans = []
+    for dev in ("cpu", cuda_device):
+        grid = tsparse.from_voxel_coords(
+            torch.zeros(1, FHD_VOXELS, 1, device=dev),
+            coords[None].to(dev), shape)
+        plans.append(tsm.build_device_plan(grid, scales))
+    (cpu, cpu_counts), (card, card_counts) = plans
+    assert sorted(cpu) == sorted(card) and cpu
+    for key, value in cpu.items():
+        assert torch.equal(card[key].cpu(), value), key
+    assert torch.equal(card_counts.cpu(), cpu_counts)
+
+
+@pytest.mark.cuda
+def test_device_route_inference_captures_in_cuda_graph(cuda_device):
+    """car.fhd inference on the device route (points -> the voxelizer ->
+    device rulebooks -> the network -> predict) forces no host sync:
+    it captures in a CUDA graph, whose replay gives the eager run's
+    detections exactly."""
+    from second_tpu_torch.core.inference import (
+        InferenceContext,
+        example_to_device,
+    )
+    from second_tpu_torch.models.voxelnet import predict
+
+    ctx = InferenceContext()
+    ctx.build("configs/car.fhd.config", device=cuda_device,
+              device_voxelize=True)
+    ctx.init_random(0)
+    example = ctx.get_inference_input_dict(
+        {}, make_kitti_scene(np.random.RandomState(0))[0])
+    ex = example_to_device(example, cuda_device)
+    net, spec = ctx.parts["net"], ctx.parts["spec"]
+
+    def run():
+        with torch.no_grad():
+            voxels, num_points, coords = ctx.voxelizer(ex["points"],
+                                                       ex["points_count"])
+            return predict(spec, net(voxels, num_points, coords), ex)
+
+    _, eager = ctx.run(example)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert int(eager["valid"].sum()) > 0
+    for key, value in eager.items():
+        assert torch.equal(out[key], value), key

@@ -5,7 +5,9 @@ A subprocess whose ``sys.meta_path`` refuses ``jax``, ``jaxlib``,
 ``flax``, ``optax`` and the top-level ``second_tpu`` package (by exact
 name, so ``second_tpu_torch`` still loads) imports the port and
 ``chip_smoke.py``, runs the small car.fhd slices on the CPU (random
-weights: one inference frame, one training step at batch 2), one
+weights: one inference frame, one training step at batch 2, each on
+the host plan and again on the device route, which ships points and
+builds the voxels and rulebooks on the device), one
 request of the small PointPillars slice (the flat pillar path),
 ``train`` for one step at batch 2 on a 2-frame fixture tree (the
 device voxelizer, checkpoint, the eval into the official AP) followed by
@@ -61,7 +63,7 @@ from second_tpu_torch.native import eval_native  # noqa: F401
 from second_tpu_torch.tools import kitti_fixture, overfit_ap  # noqa: F401
 from second_tpu_torch.train import checkpoint, optimizer  # noqa: F401
 from second_tpu_torch.train.__main__ import evaluate, train
-from second_tpu_torch.train.state import make_train_step
+from second_tpu_torch.train.state import make_train_step, make_voxelizer_fn
 from second_tpu_torch.utils import eval as kitti_eval  # noqa: F401
 from second_tpu_torch.utils import fire_lite, log_tool, timer  # noqa: F401
 
@@ -86,6 +88,25 @@ opt, lr_fn, mom_fn = optimizer.build(
     list(parts["net"].parameters()))
 step = make_train_step(parts["net"], parts["spec"], opt, lr_fn, mom_fn)
 metrics = step(example_to_device(batch, "cpu"))
+
+# the device route: points in, voxels and rulebooks built on the device
+dev = InferenceContext()
+dev.build(cfg, device="cpu", device_voxelize=True)
+dev.init_random(0)
+dev_dets = dev.inference(dev.get_inference_input_dict({}, points))
+cap = cfg.train_input_reader.preprocess.max_number_of_voxels
+dev_prep = build_prep_func(cfg.train_input_reader, dev.parts, training=True,
+                           emit_points=32768, compact_targets=True)
+dev_batch = merge_second_batch([
+    dev_prep(input_dict={"lidar": {"points": points.copy(), "annotations": {
+        "boxes": boxes.copy(), "names": names}}}) for _ in range(2)])
+opt, lr_fn, mom_fn = optimizer.build(
+    cfg.train_config.optimizer, cfg.train_config.steps,
+    list(dev.parts["net"].parameters()))
+dev_metrics = make_train_step(
+    dev.parts["net"], dev.parts["spec"], opt, lr_fn, mom_fn,
+    voxelizer=make_voxelizer_fn(dev.parts["voxel_generator"], cap))(
+        example_to_device(dev_batch, "cpu"))
 
 with open(pp_config_path) as f:
     pp_cfg = loads_pipeline_config(f.read())
@@ -127,6 +148,12 @@ print(json.dumps({"loaded": loaded, "n_frames": len(dets),
                   "box_shape": list(dets[0]["box3d_lidar"].shape),
                   "finite": bool(np.isfinite(dets[0]["box3d_lidar"]).all()),
                   "loss": float(metrics["loss"]),
+                  "device_route_frames": len(dev_dets),
+                  "device_route_finite": bool(
+                      np.isfinite(dev_dets[0]["box3d_lidar"]).all()),
+                  "device_route_loss": float(dev_metrics["loss"]),
+                  "device_route_counts": list(
+                      dev_metrics["sparse_active_counts"].shape),
                   "global_step": step.state.global_step,
                   "pp_flat": pp.flat_pp,
                   "pp_box_shape": list(pp_dets["box3d_lidar"].shape),
@@ -178,6 +205,10 @@ def test_slice_runs_without_jax(tmp_path):
     assert result["n_frames"] == 1
     assert result["box_shape"][1:] == [7] and result["finite"]
     assert np.isfinite(result["loss"]) and result["global_step"] == 1
+    assert result["device_route_frames"] == 1
+    assert result["device_route_finite"]
+    assert np.isfinite(result["device_route_loss"])
+    assert result["device_route_counts"] == [2, 3, 2]
     assert result["pp_flat"]
     assert result["pp_box_shape"][0] > 0 and result["pp_box_shape"][1:] == [7]
     assert result["pp_finite"]
