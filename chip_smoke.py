@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths at the published width of their
+Drives the port's main paths at the published width of their
 configs, with random weights from seed 0: car.fhd inference (points ->
 detections) through ``InferenceContext`` and car.fhd training steps at
 the train reader's batch 8 through ``train.state.make_train_step``
@@ -10,9 +10,11 @@ the train reader's batch 8 through ``train.state.make_train_step``
 ``InferenceContext`` on the flat pillar path and PointPillars training
 through ``train.__main__.train`` (``configs/pointpillars/car/
 xyres_16.config``), then car.fhd training through ``train`` and
-``evaluate`` with the GT-database sampler, and car.fhd on the device
+``evaluate`` with the GT-database sampler, car.fhd on the device
 route (points shipped; the voxels and every rulebook built on the card)
-through ``InferenceContext``, ``train`` and ``evaluate``. Phases 6-9
+through ``InferenceContext``, ``train`` and ``evaluate``, and the KITTI
+multi-class SECOND (``configs/all.fhd.config``: Car, Cyclist, Pedestrian,
+Van) through the same entry points. Phases 6-9
 clear the sampler
 for ``make_kitti_scene`` frames, which have no database; the fixture
 trees of phases 9 and 10 have one. Phases, each printed as it runs:
@@ -112,7 +114,24 @@ trees of phases 9 and 10 have one. Phases, each printed as it runs:
      buffer's overflow warnings; then the other five sparse middles and
      both sparse residual blocks, forward and backward in training mode
      at a [800, 704] grid (z 41 or 81 cells), the two routes bitwise
-     equal on the card and the card against the CPU.
+     equal on the card and the card against the CPU;
+ 12. all.fhd (``all_fhd``): 4 requests from
+     ``make_kitti_scene(RandomState(i))`` on the host plan and 4 on the
+     device route (the published single-set NMS: K3 +1, K4 +2 a frame),
+     and 4 with ``use_multi_class_nms`` set on every class (K3 +4, K4
+     +8 a frame), each with its detections per class and host and
+     device ms; frame 0 under multi-class NMS on the CPU: preds agree,
+     detections matched class by class, and each class's CPU candidates
+     through K3 and K4 on the card keep exactly the CPU's boxes;
+     ``create_data`` on a 16-frame fixture tree whose frames hold every
+     class, a sampled batch (frame 0's loss card against CPU, the
+     positive anchors, the host syncs of a batch-2 step: none allowed),
+     ``train()`` 6 steps at the reader's batch 8 with the four sample
+     groups and ``evaluate()`` (the four classes' official AP); then
+     the zoo modules at small widths, card against CPU and a float64
+     CPU run, forward and backward: VFELayer, VoxelFeatureExtractor(V2),
+     SimpleVoxelRadius, a GroupNorm RPNV2, RPNNoHead, ResNetRPN,
+     bev_box_decode, GHM-C and GHM-R.
 
 Then the script's wall time, one JSON line with the kernels (``ms``
 times the wrapper,
@@ -122,7 +141,7 @@ training batch's 10; ``bound_ms`` is the fp32 bound and
 ``bound_tf32x3_ms`` the 3xTF32 one; K1's ``max_abs_err`` is its largest over phases 2
 and 6; K4's ``pp_candidates`` holds phase 8's numbers; ``launches`` count
 the main paths' runs, phases 3, 7, 8, 9 and 10's train() and evaluate()
-runs and phase 11's requests, train() and evaluate() runs, with
+runs and phases 11 and 12's requests, train() and evaluate() runs, with
 ``launches_by_path`` splitting them; ``proof_launches``
 counts the two learning proofs apart), and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for the whole run (the
@@ -161,7 +180,11 @@ from second_tpu_torch.csrc import build
 from second_tpu_torch.data import make_kitti_scene, merge_second_batch
 from second_tpu_torch.data.kitti_dataset import KittiDataset
 from second_tpu_torch.models.middle import scatter_canvas
-from second_tpu_torch.models.registry import get_middle_class
+from second_tpu_torch.models.registry import (
+    get_middle_class,
+    get_rpn_class,
+    get_vfe_class,
+)
 from second_tpu_torch.models.sparse_middle import (
     SPARSE_MIDDLE_NAMES,
     build_device_plan,
@@ -181,10 +204,12 @@ from second_tpu_torch.models.pp_fast import (
 )
 from second_tpu_torch.models.voxelnet import compute_loss, init_weights, predict
 from second_tpu_torch.ops import (
+    box_ops_torch,
     cuda_iou,
     cuda_nms,
     cuda_sparse_conv,
     cuda_sparse_conv_dw,
+    losses,
 )
 from second_tpu_torch.ops.nms import candidate_iou
 from second_tpu_torch.ops.sparse import (
@@ -277,6 +302,22 @@ FHD_DEVICE_RESUME = 1
 MODULE_VOXELS = 20000
 ROUTE_REL_TOL = 1e-5
 
+# all.fhd, the KITTI multi-class SECOND (phase 12): a fixture tree of
+# ALL_FRAMES frames at KITTI density with every class in each frame,
+# train() steps at the reader's batch; the zoo modules' tolerances at
+# their small widths: outputs card against CPU in max |diff| over max
+# |value| (cuDNN and CPU convs sum in other orders), input gradients
+# against a float64 CPU run in L2 (the RPNs' conv stacks take
+# TRAIN_GRAD_L2_TOL: a ReLU input within rounding of zero takes its
+# gate either way in two fp32 programs)
+ALL_CONFIG = "configs/all.fhd.config"
+ALL_FRAMES = 16
+ALL_SCENE = dict(classes={"Car": 6, "Pedestrian": 2, "Cyclist": 1, "Van": 1},
+                 num_bg_points=16000, points_per_object=250)
+ALL_TRAIN_STEPS = 6
+ZOO_REL_TOL = 1e-4
+ZOO_GRAD_L2_TOL = 1e-4
+
 # the card's published peaks (H100 SXM at 700 W): fp32 outside the
 # tensor cores, TF32 on them and HBM bandwidth, for each kernel's least
 # time
@@ -324,6 +365,10 @@ PATH_KERNELS = {
     # route
     "fhd_device": ("sparse_conv_gather_gemm", "sparse_conv_weight_grad",
                    "rotated_iou", "greedy_nms"),
+    # phase 12: all.fhd's requests on both routes and with multi-class
+    # NMS, its train() steps and evals and evaluate()
+    "all_fhd": ("sparse_conv_gather_gemm", "sparse_conv_weight_grad",
+                "rotated_iou", "greedy_nms"),
 }
 # the learning proofs (tools/overfit_ap.run), counted apart from the
 # main paths
@@ -650,32 +695,42 @@ def _ragged(dets):
             for k in ("box3d_lidar", "scores")}
 
 
-def _nms_steps(spec, preds, anchors, device):
+def _nms_steps(spec, preds, anchors, device, ci=None):
     """predict's steps for frame 0 of ``preds`` on ``device``, up to the
-    keep mask (car.fhd: one class, background encoded as zeros)."""
+    keep mask: over every anchor with its best class's score (car.fhd:
+    one class, background encoded as zeros), or with ``ci`` over class
+    ``ci``'s anchors and scores under its own settings (multi-class
+    NMS)."""
     box = spec.decode(preds["box_preds"][0].to(device), anchors[0].to(device))
-    scores = torch.sigmoid(preds["cls_preds"][0].to(device)).max(-1).values
+    probs = torch.sigmoid(preds["cls_preds"][0].to(device))
+    if ci is None:
+        scores, c = probs.max(-1).values, 0
+    else:
+        s, e = spec.anchors_ranges[ci]
+        box, scores, c = box[s:e], probs[s:e, ci], ci
     top_s, top_i = torch.sort(scores, descending=True, stable=True)
-    k = spec.nms_pre_max_sizes[0]
+    k = spec.nms_pre_max_sizes[c]
     top_s, top_i = top_s[:k], top_i[:k]
     cand = box[top_i][:, [0, 1, 3, 4, 6]].contiguous()
     iou = cuda_iou.rotated_iou_matrix(cand, cand)
-    valid = top_s >= spec.nms_score_thresholds[0]
-    keep = cuda_nms.greedy_suppress(iou, valid, spec.nms_iou_thresholds[0])
+    valid = top_s >= spec.nms_score_thresholds[c]
+    keep = cuda_nms.greedy_suppress(iou, valid, spec.nms_iou_thresholds[c])
     return {"box": box.cpu(), "scores": scores.cpu(), "top_s": top_s.cpu(),
             "top": top_i.cpu(), "cand": cand, "iou": iou.cpu(),
             "valid": valid.cpu(), "keep": keep.cpu()}
 
 
-def _nms_disagreement(spec, preds, anchors, device):
+def _nms_disagreement(spec, preds, anchors, device, ci=None):
     """Where predict on the same preds parts ways between the card and
-    the CPU, step by step. Returns, for the CPU's own candidates run
-    through K3 and K4 on the card, the valid pairs whose IoU falls on
-    the other side of the threshold and the keep flags that differ."""
-    thr = spec.nms_iou_thresholds[0]
-    cpu = _nms_steps(spec, preds, anchors, "cpu")
-    dev = _nms_steps(spec, preds, anchors, device)
-    log(f"reference: same preds, decoded boxes max |diff| "
+    the CPU, step by step (class ``ci``'s NMS under multi-class NMS).
+    Returns, for the CPU's own candidates run through K3 and K4 on the
+    card, the valid pairs whose IoU falls on the other side of the
+    threshold and the keep flags that differ."""
+    label = "reference" if ci is None else f"reference class {ci}"
+    thr = spec.nms_iou_thresholds[0 if ci is None else ci]
+    cpu = _nms_steps(spec, preds, anchors, "cpu", ci)
+    dev = _nms_steps(spec, preds, anchors, device, ci)
+    log(f"{label}: same preds, decoded boxes max |diff| "
         f"{(cpu['box'] - dev['box']).abs().max().item():.3e}, scores "
         f"{(cpu['scores'] - dev['scores']).abs().max().item():.3e}, "
         f"candidate scores {cpu['top_s'][-1].item():.9g}.."
@@ -688,7 +743,7 @@ def _nms_disagreement(spec, preds, anchors, device):
     far = cuda_iou.far_pairs(cand, cand)
     check(torch.equal(iou[far], torch.zeros_like(iou[far])),
           "K3 on frame 0's candidates: a rejected pair is not exactly 0.0")
-    log(f"reference: frame 0's {len(cand)} NMS candidates: pairs surviving "
+    log(f"{label}: frame 0's {len(cand)} NMS candidates: pairs surviving "
         f"K3's far-pair reject {1 - far.float().mean().item():.4f}")
     keep = cuda_nms.greedy_suppress(iou, cpu["valid"].to(device), thr).cpu()
     iou = iou.cpu()
@@ -696,10 +751,11 @@ def _nms_disagreement(spec, preds, anchors, device):
     flip = ((iou > thr) != (cpu["iou"] > thr)) & both
     pairs = (flip & torch.ones_like(flip).triu(1)).nonzero().tolist()
     keep_diff = int((keep != cpu["keep"]).sum())
-    log(f"reference: the CPU's candidates through K3 and K4 on the card: "
-        f"IoU max |diff| {(iou - cpu['iou'])[both].abs().max().item():.3e}, "
-        f"valid pairs on opposite sides of {thr}: {len(pairs)}, keep flags "
-        f"that differ {keep_diff}")
+    iou_diff = (iou - cpu["iou"])[both].abs().max().item() if both.any() else 0.0
+    log(f"{label}: the CPU's candidates through K3 and K4 on the card: "
+        f"IoU max |diff| {iou_diff:.3e}, valid pairs on opposite sides of "
+        f"{thr}: {len(pairs)}, keep flags that differ {keep_diff} (kept "
+        f"{int(cpu['keep'].sum())} of {int(cpu['valid'].sum())} valid)")
     for i, j in pairs[:4]:
         log(f"  ranks {i},{j}: card IoU {iou[i, j].item():.9g}, CPU "
             f"{cpu['iou'][i, j].item():.9g}; boxes (x, y, w, l, r) "
@@ -1499,12 +1555,12 @@ def _loss_of(net, spec, example, voxelizer=None):
                             voxelizer)["loss"].item()
 
 
-def fhd_step_checks(config, root, device, device_route=False):
+def fhd_step_checks(config, root, device, device_route=False, label=None):
     """A sampled car.fhd batch from the train reader: frame 0's loss on
     the card against the CPU, and the host syncs of a batch-2 step. The
     device route ships points and compact targets; the step voxelizes
     and builds the rulebooks on the device."""
-    label = "fhd device route" if device_route else "fhd"
+    label = label or ("fhd device route" if device_route else "fhd")
     cfg = load_pipeline_config(config)
     parts = build_network(cfg, device)
     init_weights(parts["net"], torch.Generator().manual_seed(0))
@@ -1528,9 +1584,11 @@ def fhd_step_checks(config, root, device, device_route=False):
     shipped = (f"points shipped {batch['points_count'][:, 0].tolist()} of "
                f"{POINTS_BUFFER}" if device_route else
                f"active per stage {batch['sparse_active_counts'].tolist()}")
+    positives = (batch["pos_count"][:, 0] if device_route
+                 else (batch["labels"] > 0).sum(1)).tolist()
     log(f"{label} sampled batch: {[len(f['gt_names']) for f in frames]} "
-        f"boxes after sampling (the frames' own {own}), "
-        f"host preparation {ms:.3f} ms per frame, voxels "
+        f"boxes after sampling (the frames' own {own}), positive anchors "
+        f"{positives}, host preparation {ms:.3f} ms per frame, voxels "
         f"{batch['num_voxels'][:, 0].tolist()}, {shipped}")
     batch1 = {k: v[:1] for k, v in batch.items()
               if isinstance(v, np.ndarray)}
@@ -1557,11 +1615,15 @@ def fhd_step_checks(config, root, device, device_route=False):
 
 
 def fhd_train_runs(config, root, work, device, label, steps, resume_steps,
-                   device_voxelize="auto"):
-    """car.fhd through ``train`` (``steps`` steps with ``measure_time``),
-    ``train(resume=True)`` for ``resume_steps`` more, then ``evaluate``,
-    on the fixture tree at ``root``, each run ending in the official
-    eval (K3, K4). Returns the kernel launches of those runs."""
+                   device_voxelize="auto", base_config=CONFIG,
+                   frames=FHD_FRAMES):
+    """A sparse-middle config (car.fhd, all.fhd: ``base_config`` read as
+    ``config``) through ``train`` (``steps`` steps with
+    ``measure_time``), ``train(resume=True)`` for ``resume_steps`` more
+    (none when 0), then ``evaluate``, on the fixture tree of ``frames``
+    frames at ``root``, each run ending in the official eval (K3, K4).
+    Returns the kernel launches of those runs."""
+    batch = load_pipeline_config(config).train_input_reader.batch_size
     model_dir = work / f"model_{label}"
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1582,8 +1644,8 @@ def fhd_train_runs(config, root, work, device, label, steps, resume_steps,
           f"{label} train: no checkpoint at the last step")
     check("Evaluation official" in text, f"{label} train: no official eval")
     mid = range(2, steps)
-    log(f"{label} train(): {steps} steps at batch 8 with the "
-        f"sampler on {FHD_FRAMES} fixture frames, device_voxelize="
+    log(f"{label} train(): {steps} steps at batch {batch} with the "
+        f"sampler on {frames} fixture frames, device_voxelize="
         f"{device_voxelize}, wall {wall:.3f} s "
         f"(with the final eval), loss {loss[0]:.6f} -> {loss[-1]:.6f} "
         f"(all: {[round(v, 6) for v in loss]}), step ms "
@@ -1596,23 +1658,25 @@ def fhd_train_runs(config, root, work, device, label, steps, resume_steps,
         f"warnings: {text.count('OVERFLOW')}), {evals[-1]}, peak device "
         f"memory {peak:.1f} MiB")
 
-    t0 = time.perf_counter()
     total = steps + resume_steps
-    train(fixture_config(CONFIG, root, work / f"{label}_resume.config",
-                         total),
-          str(model_dir), resume=True, display_step=1, measure_time=True,
-          device_voxelize=device_voxelize, device=device)
-    losses, _, _, evals, text = _log_steps(model_dir)
-    check(sorted(losses) == list(range(1, total + 1)),
-          f"{label} resume: logged steps {sorted(losses)}")
-    check((model_dir / f"voxelnet-{total}.ckpt").is_file(),
-          f"{label} resume: no checkpoint")
-    check(text.count("Evaluation official") == 2,
-          f"{label} resume: no official eval")
-    log(f"{label} train(resume=True): restored step {steps}, "
-        f"steps {steps + 1}-{total} losses "
-        f"{[round(losses[i], 6) for i in range(steps + 1, total + 1)]}"
-        f", wall {time.perf_counter() - t0:.3f} s, {evals[-1]}")
+    if resume_steps:
+        t0 = time.perf_counter()
+        train(fixture_config(base_config, root,
+                             work / f"{label}_resume.config", total),
+              str(model_dir), resume=True, display_step=1,
+              measure_time=True, device_voxelize=device_voxelize,
+              device=device)
+        losses, _, _, evals, text = _log_steps(model_dir)
+        check(sorted(losses) == list(range(1, total + 1)),
+              f"{label} resume: logged steps {sorted(losses)}")
+        check((model_dir / f"voxelnet-{total}.ckpt").is_file(),
+              f"{label} resume: no checkpoint")
+        check(text.count("Evaluation official") == 2,
+              f"{label} resume: no official eval")
+        log(f"{label} train(resume=True): restored step {steps}, "
+            f"steps {steps + 1}-{total} losses "
+            f"{[round(losses[i], 6) for i in range(steps + 1, total + 1)]}"
+            f", wall {time.perf_counter() - t0:.3f} s, {evals[-1]}")
 
     t0 = time.perf_counter()
     res = evaluate(config, str(model_dir),
@@ -1620,9 +1684,9 @@ def fhd_train_runs(config, root, work, device, label, steps, resume_steps,
                    device_voxelize=device_voxelize, device=device)
     wall = time.perf_counter() - t0
     check("official" in res["results"], f"{label} evaluate: no official AP")
-    official = res["results"]["official"].splitlines()[:5]
-    log(f"{label} evaluate(): {FHD_FRAMES} frames in {wall:.3f} s "
-        f"({FHD_FRAMES / wall:.3f} fps with the set-up and the AP), "
+    official = res["results"]["official"].splitlines()
+    log(f"{label} evaluate(): {frames} frames in {wall:.3f} s "
+        f"({frames / wall:.3f} fps with the set-up and the AP), "
         f"random start + {total} steps: " + " | ".join(official))
     return {name: module.launches for name, module, _, _ in KERNELS}
 
@@ -1928,6 +1992,254 @@ def phase_fhd_device(ctx, device, root, work):
     return launches
 
 
+def _by_class(dets, ci):
+    """Frame 0's valid detections of class ``ci`` (host arrays)."""
+    keep = (dets["valid"][0] & (dets["label_preds"][0] == ci)).cpu().numpy()
+    return {k: dets[k][0].cpu().numpy()[keep]
+            for k in ("box3d_lidar", "scores")}
+
+
+def all_fhd_requests(ctx, label):
+    """``N_FRAMES`` all.fhd requests through ``ctx``: the detections per
+    class and the CUDA-synchronised host and device ms of each. Returns
+    each frame's K3 and K4 launches."""
+    classes = ctx.parts["target_assigner"].classes
+    per_frame = []
+    for i in range(N_FRAMES):
+        points = make_kitti_scene(np.random.RandomState(i))[0]
+        k3, k4 = cuda_iou.launches, cuda_nms.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        example = ctx.get_inference_input_dict({}, points)
+        t1 = time.perf_counter()
+        dets = ctx.inference(example)[0]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        boxes = dets["box3d_lidar"]
+        check(boxes.ndim == 2 and boxes.shape[1] == 7
+              and np.isfinite(boxes).all(), f"{label} frame {i}: bad boxes")
+        per_frame.append((cuda_iou.launches - k3, cuda_nms.launches - k4))
+        by_class = {name: int((dets["label_preds"] == c).sum())
+                    for c, name in enumerate(classes)}
+        log(f"{label} frame {i}: {len(points)} points, {len(boxes)} "
+            f"detections {by_class}, host prep {(t1 - t0) * 1e3:.3f} ms, "
+            f"device inference {(t2 - t1) * 1e3:.3f} ms, total "
+            f"{(t2 - t0) * 1e3:.3f} ms; K3 +{per_frame[-1][0]}, K4 "
+            f"+{per_frame[-1][1]}")
+    return per_frame
+
+
+def all_fhd_reference(mctx, device):
+    """Frame 0 through all.fhd under multi-class NMS (``mctx``) on the
+    card and on the CPU with the plain kernels: the preds, the
+    detections matched class by class, and each class's NMS candidates
+    of the CPU run through K3 and K4 on the card."""
+    example = mctx.get_inference_input_dict(
+        {}, make_kitti_scene(np.random.RandomState(0))[0])
+    preds, dets = mctx.run(example)
+    cpu = InferenceContext()
+    cpu.build(mctx.config, device="cpu")
+    cpu.parts["net"].load_state_dict(mctx.parts["net"].state_dict())
+    t0 = time.perf_counter()
+    preds_cpu, dets_cpu = cpu.run(example)
+    log(f"all.fhd reference: frame 0 on the CPU took "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock)")
+    for key in preds:
+        rel = _route_rel(preds[key].cpu(), preds_cpu[key])
+        check(rel <= PREDS_REL_TOL,
+              f"all.fhd {key}: card vs CPU rel err {rel} > {PREDS_REL_TOL}")
+        log(f"all.fhd reference: {key} {tuple(preds_cpu[key].shape)} card "
+            f"vs CPU rel err {rel:.3e}")
+    spec = mctx.parts["spec"]
+    matched = total = 0
+    for ci, name in enumerate(mctx.parts["target_assigner"].classes):
+        card, ref = _by_class(dets, ci), _by_class(dets_cpu, ci)
+        frac, _, _ = _match(card, ref)
+        n = max(len(card["scores"]), len(ref["scores"]))
+        matched, total = matched + frac * n, total + n
+        log(f"all.fhd reference: {name} detections card "
+            f"{len(card['scores'])}, CPU {len(ref['scores'])}, matched "
+            f"{frac:.4f}")
+    frac = matched / total if total else 1.0
+    check(total > 0, "all.fhd frame 0 produced no detections")
+    check(frac >= FRAME_MATCH_MIN,
+          f"all.fhd detections matched class by class {frac} < "
+          f"{FRAME_MATCH_MIN}")
+    anchors = torch.from_numpy(example["anchors"].astype(np.float32))
+    for ci in range(spec.num_class):
+        straddles, keep_diff = _nms_disagreement(spec, preds_cpu, anchors,
+                                                 device, ci)
+        check(straddles == 0 and keep_diff == 0,
+              f"all.fhd class {ci}: K3/K4 on the CPU's candidates: "
+              f"{straddles} IoU pairs straddle the threshold, {keep_diff} "
+              f"keep flags differ")
+
+
+def _zoo_case(name, module, inputs, run, device, seed,
+              grad_tol=ZOO_GRAD_L2_TOL):
+    """``run(module, *inputs)`` (a tensor or a dict of them) in training
+    mode from the same weights and inputs on the card, on the CPU and on
+    the CPU in float64, and the first input's gradient of sum(out * g)
+    for a random g: the card's outputs within ``ZOO_REL_TOL`` of the
+    CPU's largest magnitude, its gradient within ``grad_tol`` of the
+    float64 gradient in L2 (the CPU's own fp32 error printed beside)."""
+    runs = {}
+    for label, dev, dtype in (("cpu64", "cpu", torch.float64),
+                              ("cpu", "cpu", torch.float32),
+                              ("card", device, torch.float32)):
+        def cast(t):
+            return t.to(dev, dtype) if t.is_floating_point() else t.to(dev)
+
+        mod = (None if module is None
+               else copy.deepcopy(module).to(dev, dtype).train())
+        x = cast(inputs[0]).requires_grad_(True)
+        out = run(mod, x, *(cast(t) for t in inputs[1:]))
+        out = out if isinstance(out, dict) else {"out": out}
+        gen = torch.Generator().manual_seed(seed)
+        loss = sum((out[k] * torch.randn(out[k].shape, generator=gen)
+                    .to(dev, dtype)).sum() for k in sorted(out))
+        (grad,) = torch.autograd.grad(loss, x)
+        runs[label] = ({k: v.detach().cpu() for k, v in out.items()},
+                       grad.cpu().double())
+    (out_c, grad_c), (out_d, grad_d) = runs["cpu"], runs["card"]
+    grad_64 = runs["cpu64"][1]
+    check(all(torch.isfinite(v).all() for v in out_d.values())
+          and torch.isfinite(grad_d).all(), f"zoo {name}: not finite")
+    rel = max(_route_rel(out_d[k], out_c[k]) for k in out_c)
+
+    def l2(a):
+        return ((a - grad_64).norm() / grad_64.norm().clamp(min=1e-30)).item()
+
+    check(rel <= ZOO_REL_TOL, f"zoo {name}: card vs CPU rel err {rel}")
+    check(l2(grad_d) <= grad_tol,
+          f"zoo {name}: input gradient L2 {l2(grad_d)} off float64")
+    log(f"zoo {name}: outputs "
+        f"{ {k: tuple(v.shape) for k, v in out_c.items()} }, training mode, "
+        f"card vs CPU rel err {rel:.3e}; input gradient off the float64 "
+        f"CPU run in L2: card {l2(grad_d):.3e}, CPU fp32 {l2(grad_c):.3e} "
+        f"(limit {grad_tol:g})")
+
+
+def all_fhd_zoo(device):
+    """The zoo modules the slice ported, at small widths, card against
+    CPU, forward and backward: the four encoders (VFELayer, the two VFE
+    stacks, SimpleVoxelRadius) on 4000 voxels of 5 slots, a GroupNorm
+    RPNV2, RPNNoHead and ResNetRPN on a [2, 64, 96, 96] map,
+    bev_box_decode and the GHM losses on 2 x 20000 anchors."""
+    from second_tpu_torch.models.voxel_encoders import VFELayer
+
+    g = torch.Generator().manual_seed(12)
+    counts = torch.randint(0, 6, (2, 4000), generator=g, dtype=torch.int32)
+    voxels = torch.randn(2, 4000, 5, 4, generator=g) * (
+        torch.arange(5)[None, None, :, None] < counts[..., None, None])
+    coords = torch.zeros(2, 4000, 3, dtype=torch.int32)
+
+    def init(module):
+        init_weights(module, torch.Generator().manual_seed(0))
+        return module
+
+    vfe = init(VFELayer(7, 32))
+    _zoo_case("VFELayer", vfe, (torch.randn(2, 4000, 5, 7, generator=g),
+                                counts > 0),
+              lambda m, x, mask: m(x, mask), device, 1)
+    for name, filters in (("VoxelFeatureExtractor", (32, 64)),
+                          ("VoxelFeatureExtractorV2", (16, 32, 64)),
+                          ("SimpleVoxelRadius", (16,))):
+        module = init(get_vfe_class(name)(num_input_features=4,
+                                          num_filters=filters))
+        _zoo_case(name, module, (voxels, counts, coords),
+                  lambda m, *a: m(*a), device, 2)
+    rpn = dict(num_class=4, layer_nums=(2, 2), layer_strides=(1, 2),
+               num_filters=(32, 64), upsample_strides=(1, 2),
+               num_upsample_filters=(32, 32), num_input_features=64,
+               num_anchor_per_loc=8, box_code_size=7, num_direction_bins=2)
+    bev = torch.randn(2, 64, 96, 96, generator=g)
+    for name, extra in (("RPNV2", dict(use_groupnorm=True, num_groups=8)),
+                        ("RPNNoHead", {}), ("ResNetRPN", {})):
+        module = init(get_rpn_class(name)(**rpn, **extra))
+        label = "RPNV2 (GroupNorm)" if name == "RPNV2" else name
+        # conv stacks with ReLU gates: TRAIN_GRAD_L2_TOL, as phase 7
+        _zoo_case(label, module, (bev,), lambda m, x: m(x), device, 3,
+                  grad_tol=TRAIN_GRAD_L2_TOL)
+    n = 20000
+    anchors = torch.stack([
+        torch.rand(n, generator=g) * 70, torch.rand(n, generator=g) * 80 - 40,
+        torch.rand(n, generator=g) * 2 + 0.5,
+        torch.rand(n, generator=g) * 4 + 0.8,
+        torch.rand(n, generator=g) * 1.57], 1)
+    _zoo_case("bev_box_decode", None,
+              (torch.randn(n, 5, generator=g) * 0.3, anchors),
+              lambda _, e, a: box_ops_torch.bev_box_decode(e, a), device, 4)
+    labels = torch.randint(-1, 5, (2, n), generator=g)
+    onehot = torch.nn.functional.one_hot(labels.clamp(min=0), 5)[..., 1:]
+    weights = (labels >= 0).float()
+    _zoo_case("GHM-C", None, (torch.randn(2, n, 4, generator=g) * 2,
+                              onehot.float(), weights),
+              lambda _, x, t, w: losses.ghm_c_loss(x, t, w), device, 5)
+    _zoo_case("GHM-R", None, (torch.randn(2, n, 7, generator=g) * 0.5,
+                              torch.randn(2, n, 7, generator=g) * 0.5,
+                              weights),
+              lambda _, x, t, w: losses.ghm_r_loss(x, t, w), device, 6)
+
+
+def phase_all_fhd(device, work):
+    """Phase 12: all.fhd, the KITTI multi-class SECOND, through the
+    port's entry points. Returns the kernel launches of its requests,
+    train() and evaluate() runs."""
+    t_phase = time.perf_counter()
+    ctx = InferenceContext()
+    ctx.build(ALL_CONFIG, device=device)
+    ctx.init_random(0)
+    state = ctx.parts["net"].state_dict()
+    dctx = InferenceContext()
+    dctx.build(ALL_CONFIG, device=device, device_voxelize=True)
+    dctx.parts["net"].load_state_dict(state)
+    cfg = load_pipeline_config(ALL_CONFIG)
+    settings = cfg.model.second.target_assigner.class_settings
+    published = [c.use_multi_class_nms for c in settings]
+    for c in settings:
+        c.use_multi_class_nms = True
+    mctx = InferenceContext()
+    mctx.build(cfg, device=device)
+    mctx.parts["net"].load_state_dict(state)
+    n = mctx.parts["spec"].num_class
+    log(f"all.fhd: {n} classes {ctx.parts['target_assigner'].classes}, "
+        f"{ctx.parts['anchor_cache']['anchors'].shape[0]} anchors; the "
+        f"published file sets use_multi_class_nms {published}, so the "
+        f"multi-class run sets it on every class")
+
+    reset_launches()
+    for label, c, per_class in (("all.fhd host plan", ctx, False),
+                                ("all.fhd device route", dctx, False),
+                                ("all.fhd multi-class NMS", mctx, True)):
+        nms = n if per_class else 1
+        per_frame = all_fhd_requests(c, label)
+        check(all(f == (nms, 2 * nms) for f in per_frame),
+              f"{label}: K3/K4 launches per frame {per_frame}, expected "
+              f"{(nms, 2 * nms)}")
+    launches = {name: module.launches for name, module, _, _ in KERNELS}
+    log(f"all.fhd: launches in the {3 * N_FRAMES} requests: {launches}")
+    all_fhd_reference(mctx, device)
+
+    work.mkdir()
+    root = fixture_tree(work, ALL_FRAMES, ALL_SCENE)
+    config = fixture_config(ALL_CONFIG, root, work / "all_fhd.config",
+                            ALL_TRAIN_STEPS)
+    fhd_step_checks(config, root, device, label="all.fhd")
+    train_launches = fhd_train_runs(
+        config, root, work, device, "all_fhd", ALL_TRAIN_STEPS, 0,
+        base_config=ALL_CONFIG, frames=ALL_FRAMES)
+    launches = {k: launches[k] + train_launches[k] for k in launches}
+    for kernel in PATH_KERNELS["all_fhd"]:
+        check(launches[kernel] > 0,
+              f"the all_fhd path never launched {kernel}")
+    log(f"all.fhd: launches in the requests, train() and evaluate() runs: "
+        f"{launches}")
+    all_fhd_zoo(device)
+    log(f"phase 12 (all_fhd): {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1968,6 +2280,7 @@ def main():
         launches["fhd_train"], proofs["fhd_proof"], root = phase_fhd_train(
             device, work)
         launches["fhd_device"] = phase_fhd_device(ctx, device, root, work)
+        launches["all_fhd"] = phase_all_fhd(device, work / "all_fhd")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -2,8 +2,7 @@
 ``second_tpu/builders/losses_builder.py``; reference
 second/pytorch/builder/losses_builder.py:23-190).
 
-Returns plain closures over :mod:`second_tpu_torch.ops.losses`. The GHM
-losses are not ported yet and raise.
+Returns plain closures over :mod:`second_tpu_torch.ops.losses`.
 """
 
 import functools
@@ -36,7 +35,8 @@ def _build_classification(cfg: schema.ClassificationLoss):
             L.bootstrapped_sigmoid_loss, alpha=c.alpha,
             hard_bootstrap=c.hard_bootstrap)
     if which == "weighted_ghm":
-        raise NotImplementedError("the GHM losses are not ported yet")
+        c = cfg.weighted_ghm
+        return functools.partial(L.ghm_c_loss, bins=c.bins or 10)
     raise ValueError("empty classification loss config")
 
 
@@ -52,7 +52,11 @@ def _build_localization(cfg: schema.LocalizationLoss):
         return functools.partial(
             L.weighted_smooth_l1_loss, sigma=c.sigma, code_weights=cw)
     if which == "weighted_ghm":
-        raise NotImplementedError("the GHM losses are not ported yet")
+        c = cfg.weighted_ghm
+        cw = list(c.code_weight) or None
+        return functools.partial(
+            L.ghm_r_loss, mu=c.mu or 0.02, bins=c.bins or 10,
+            code_weights=cw)
     raise ValueError("empty localization loss config")
 
 

@@ -40,30 +40,34 @@ def _nms_params(ta_cfg: schema.TargetAssigner):
 
     use_mcnms = [c.use_multi_class_nms for c in classes_cfg]
     use_rot = [c.use_rotate_nms for c in classes_cfg]
-    if any(use_mcnms):
-        raise NotImplementedError("multi-class NMS is not ported yet")
+    if not (all(use_mcnms) or not any(use_mcnms)):
+        raise ValueError("mixed multiclass nms")
     if not (all(use_rot) or not any(use_rot)):
         raise ValueError("mixed rotate nms")
     pre = per_class(ta_cfg.nms_pre_max_sizes, "nms_pre_max_size")
     post = per_class(ta_cfg.nms_post_max_sizes, "nms_post_max_size")
     score = per_class(ta_cfg.nms_score_thresholds, "nms_score_threshold")
     iou = per_class(ta_cfg.nms_iou_thresholds, "nms_iou_threshold")
-    for vals in (pre, post, score, iou):
-        if len(set(vals)) != 1:
-            raise ValueError("single-class-set NMS needs one setting for "
-                             "all classes")
-    return all(use_rot), pre, post, score, iou
+    if not any(use_mcnms):
+        for vals in (pre, post, score, iou):
+            if len(set(vals)) != 1:
+                raise ValueError("single-class-set NMS needs one setting "
+                                 "for all classes")
+    return all(use_mcnms), all(use_rot), pre, post, score, iou
 
 
 def build_model_spec(model_cfg: schema.VoxelNet, target_assigner):
     cls_loss_fn, loc_loss_fn, cls_w, loc_w = losses_builder.build(
         model_cfg.loss)
-    rot_nms, pre, post, score, iou = _nms_params(model_cfg.target_assigner)
+    mcnms, rot_nms, pre, post, score, iou = _nms_params(
+        model_cfg.target_assigner)
     box_coder = target_assigner.box_coder
-    if isinstance(box_coder, BevBoxCoder):
-        raise NotImplementedError("the BEV box coder is not ported yet")
+    num_class = len(model_cfg.target_assigner.class_settings)
+    anchors_ranges = tuple(
+        tuple(int(v) for v in target_assigner.anchors_range(i))
+        for i in range(num_class))
     return ModelSpec(
-        num_class=len(model_cfg.target_assigner.class_settings),
+        num_class=num_class,
         box_code_size=box_coder.code_size,
         num_anchor_per_loc=target_assigner.num_anchors_per_location,
         cls_loss_fn=cls_loss_fn,
@@ -85,12 +89,18 @@ def build_model_spec(model_cfg: schema.VoxelNet, target_assigner):
         dir_limit_offset=model_cfg.direction_limit_offset,
         linear_dim=getattr(box_coder, "linear_dim", False),
         vec_encode=getattr(box_coder, "vec_encode", False),
+        bev_coder=isinstance(box_coder, BevBoxCoder),
+        bev_z_fixed=getattr(box_coder, "z_fixed", -1.0),
+        bev_h_fixed=getattr(box_coder, "h_fixed", 2.0),
         use_rotate_nms=rot_nms,
+        multiclass_nms=mcnms,
+        nms_class_agnostic=model_cfg.nms_class_agnostic,
         nms_score_thresholds=tuple(score),
         nms_pre_max_sizes=tuple(int(v) for v in pre),
         nms_post_max_sizes=tuple(int(v) for v in post),
         nms_iou_thresholds=tuple(iou),
         post_center_range=tuple(model_cfg.post_center_limit_range),
+        anchors_ranges=anchors_ranges,
     )
 
 
@@ -100,9 +110,15 @@ def build_network(config, device):
     if isinstance(config, schema.TrainEvalPipelineConfig):
         model_cfg = config.model.second
         if config.train_config.enable_mixed_precision:
-            raise NotImplementedError("mixed precision is not ported yet")
+            raise NotImplementedError(
+                "mixed precision is not ported yet (ROADMAP.md queue 1 "
+                "item 5: it needs bf16 variants of the sparse-conv kernels)")
     else:
         model_cfg = config
+    if model_cfg.network_class_name == "VoxelNetNuscenesMultiHead":
+        raise NotImplementedError(
+            "the multi-head network is not ported yet (ROADMAP.md queue 1 "
+            "item 5: it waits for its config and the nuScenes devkit)")
     voxel_generator = voxel_builder.build(model_cfg.voxel_generator)
     box_coder = box_coder_builder.build(model_cfg.box_coder)
     target_assigner = target_assigner_builder.build(

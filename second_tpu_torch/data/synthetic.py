@@ -4,24 +4,47 @@ There is no real KITTI data in CI; these helpers build plausible scenes
 (ground plane + boxes with interior points). The port's copy of
 ``second_tpu/data/synthetic.py`` (less ``assemble_example``):
 ``make_scene`` (``min_gap`` keeps the objects apart, for the on-disk
-fixture of ``tools/kitti_fixture.py``) and ``make_kitti_scene``.
+fixture of ``tools/kitti_fixture.py``; ``classes`` mixes KITTI classes)
+and ``make_kitti_scene``.
 """
 
 import numpy as np
 
 from ..core import box_ops
 
+# mean (w, l, h) of each KITTI class: all.fhd's anchor sizes
+CLASS_SIZES = {
+    "Car": (1.6, 3.9, 1.56),
+    "Cyclist": (0.6, 1.76, 1.73),
+    "Pedestrian": (0.6, 0.8, 1.73),
+    "Van": (1.87103749, 5.02808195, 2.20964255),
+}
+# the spread of the sizes (w, l, h) around a car's mean
+SIZE_STD = (0.1, 0.3, 0.1)
+
 
 def make_scene(rng, num_objects=5, num_bg_points=8000,
                x_range=(0.0, 70.4), y_range=(-40.0, 40.0),
                points_per_object=120, size_mean=(1.6, 3.9, 1.56),
-               min_gap=None):
+               min_gap=None, classes=None):
     """Returns (points [N, 4], gt_boxes [M, 7], gt_names [M]).
 
     min_gap: if set, rejection-sample object centers so no two are
     closer than this (meters) — physically-plausible non-overlapping
     boxes, which NMS and the KITTI matcher both assume.
+
+    classes: optional {name: count} of ``CLASS_SIZES`` classes instead
+    of ``num_objects`` cars of ``size_mean``; each object's size is drawn
+    around its class's mean with the car's spread scaled to that mean.
     """
+    if classes is not None:
+        names = np.array([n for n, c in classes.items() for _ in range(c)])
+        num_objects = len(names)
+        means = np.array([CLASS_SIZES[n] for n in names]).reshape(-1, 3)
+        size_std = np.asarray(SIZE_STD) * means / CLASS_SIZES["Car"]
+    else:
+        names = np.array(["Car"] * num_objects)
+        means, size_std = size_mean, SIZE_STD
     if min_gap is not None:
         centers = []
         for _ in range(num_objects):
@@ -38,8 +61,7 @@ def make_scene(rng, num_objects=5, num_bg_points=8000,
         gx = rng.uniform(x_range[0] + 5, x_range[1] - 5, num_objects)
         gy = rng.uniform(y_range[0] + 5, y_range[1] - 5, num_objects)
     gz = rng.uniform(-1.8, -1.4, num_objects)
-    sizes = np.abs(rng.normal(size_mean, [0.1, 0.3, 0.1],
-                              (num_objects, 3)))
+    sizes = np.abs(rng.normal(means, size_std, (num_objects, 3)))
     yaw = rng.uniform(-np.pi, np.pi, num_objects)
     gt_boxes = np.stack([gx, gy, gz, sizes[:, 0], sizes[:, 1], sizes[:, 2],
                          yaw], axis=1).astype(np.float32)
@@ -65,7 +87,6 @@ def make_scene(rng, num_objects=5, num_bg_points=8000,
         obj_points.append(np.concatenate([pts, inten], axis=1))
     points = np.concatenate([bg] + obj_points).astype(np.float32)
     rng.shuffle(points)
-    names = np.array(["Car"] * num_objects)
     return points, gt_boxes, names
 
 

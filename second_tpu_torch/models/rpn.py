@@ -1,9 +1,10 @@
 """Region proposal networks (twin of ``second_tpu/models/rpn.py``), NCHW.
 
 Per stage a strided 3x3 conv and ``layer_num`` 3x3 convs (each
-Conv+BN+ReLU), a transpose-conv "deblock" per upsampled stage, the
-upsampled maps concatenated, then 1x1 cls/box/dir heads reshaped
-anchor-type-major to [B, nloc, H, W, size], as in JAX.
+Conv+BN+ReLU, or Conv+GroupNorm+ReLU), or residual blocks (ResNetRPN),
+a transpose-conv "deblock" per upsampled stage, the upsampled maps
+concatenated, then 1x1 cls/box/dir heads reshaped anchor-type-major to
+[B, nloc, H, W, size], as in JAX.
 """
 
 import numpy as np
@@ -16,7 +17,10 @@ from .registry import register_rpn
 
 
 class ConvBNReLU(nn.Module):
-    def __init__(self, cin, cout, kernel=3, stride=1, transpose=False):
+    """Conv (or transpose conv) + batch norm (or GroupNorm) + ReLU."""
+
+    def __init__(self, cin, cout, kernel=3, stride=1, transpose=False,
+                 use_groupnorm=False, num_groups=32):
         super().__init__()
         if transpose:
             self.conv = nn.ConvTranspose2d(cin, cout, kernel, stride=stride,
@@ -24,10 +28,42 @@ class ConvBNReLU(nn.Module):
         else:
             self.conv = nn.Conv2d(cin, cout, kernel, stride=stride,
                                   padding=(kernel - 1) // 2, bias=False)
-        self.bn = MaskedBatchNorm(cout)
+        if use_groupnorm:
+            # contiguous channel groups, as flax groups the last axis
+            self.gn = nn.GroupNorm(num_groups, cout, eps=1e-3)
+        else:
+            self.bn = MaskedBatchNorm(cout)
 
     def forward(self, x):
-        return F.relu(self.bn(self.conv(x), channel_dim=1))
+        x = self.conv(x)
+        if hasattr(self, "gn"):
+            return F.relu(self.gn(x))
+        return F.relu(self.bn(x, channel_dim=1))
+
+
+class BasicBlock(nn.Module):
+    """torchvision-style residual block of ResNetRPN (rpn.py:428-466):
+    two 3x3 Conv+BN, a 1x1 Conv+BN shortcut where the stride or the
+    width changes, ReLU of the sum."""
+
+    def __init__(self, cin, planes, stride=1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn1 = MaskedBatchNorm(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = MaskedBatchNorm(planes)
+        if stride != 1 or cin != planes:
+            self.downsample_conv = nn.Conv2d(cin, planes, 1, stride=stride,
+                                             bias=False)
+            self.downsample_bn = MaskedBatchNorm(planes)
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x), channel_dim=1))
+        out = self.bn2(self.conv2(out), channel_dim=1)
+        if hasattr(self, "downsample_conv"):
+            x = self.downsample_bn(self.downsample_conv(x), channel_dim=1)
+        return F.relu(out + x)
 
 
 def head_reshape(preds, num_anchor_per_loc, per_loc_size):
@@ -43,7 +79,8 @@ class RPNNoHeadBase(nn.Module):
 
     ``layers`` holds every ConvBNReLU in the order the JAX module
     creates them (its ``ConvBNReLU_{n}``): per stage the strided conv,
-    ``layer_num`` convs, then the stage's deblock.
+    ``layer_num`` convs, then the stage's deblock. A stride below 1
+    upsamples by a strided conv of 1 / stride.
     """
 
     def __init__(self, num_class=2, layer_nums=(3, 5, 5),
@@ -55,55 +92,73 @@ class RPNNoHeadBase(nn.Module):
                  use_direction_classifier=True, use_groupnorm=False,
                  num_groups=32, box_code_size=7, num_direction_bins=2):
         super().__init__()
-        if use_groupnorm:
-            raise NotImplementedError("GroupNorm RPNs are not ported yet")
         if not (len(layer_strides) == len(layer_nums) == len(num_filters)):
             raise ValueError("layer_nums, layer_strides and num_filters "
                              "must have one entry per stage")
         if len(num_upsample_filters) != len(upsample_strides):
             raise ValueError("one upsample filter count per upsample stride")
+        start = len(layer_nums) - len(upsample_strides)
+        scales = {upsample_strides[i]
+                  / np.prod(layer_strides[:i + start + 1])
+                  for i in range(len(upsample_strides))}
+        if len(scales) > 1:
+            raise ValueError("the upsampled stages must meet at one scale")
         self.num_class = num_class
         self.num_anchor_per_loc = num_anchor_per_loc
         self.encode_background_as_zeros = encode_background_as_zeros
         self.use_direction_classifier = use_direction_classifier
         self.box_code_size = box_code_size
         self.num_direction_bins = num_direction_bins
-        start = len(layer_nums) - len(upsample_strides)
+        self.use_groupnorm = use_groupnorm
+        self.num_groups = num_groups
         self.layers = nn.ModuleList()
-        self._stages = []  # (first layer, layer count, deblock or None)
+        self._stages = []  # (the stage's modules, its deblock or None)
         cin = num_input_features
         for i, layer_num in enumerate(layer_nums):
             nf = num_filters[i]
-            first = len(self.layers)
-            self.layers.append(
-                ConvBNReLU(cin, nf, 3, layer_strides[i]))
-            for _ in range(layer_num):
-                self.layers.append(ConvBNReLU(nf, nf, 3, 1))
+            body = self._stage(cin, nf, layer_strides[i], layer_num)
             up = None
             if i - start >= 0:
                 stride = upsample_strides[i - start]
                 nf_up = num_upsample_filters[i - start]
                 if stride >= 1:
                     s = int(np.round(stride))
-                    self.layers.append(
-                        ConvBNReLU(nf, nf_up, s, s, transpose=True))
+                    up = self._conv(nf, nf_up, s, s, transpose=True)
                 else:
                     s = int(np.round(1 / stride))
-                    self.layers.append(ConvBNReLU(nf, nf_up, s, s))
-                up = len(self.layers) - 1
-            self._stages.append((first, layer_num + 1, up))
+                    up = self._conv(nf, nf_up, s, s)
+            self._stages.append((body, up))
             cin = nf
         self.final_num_filters = (sum(num_upsample_filters)
                                   if len(num_upsample_filters) else cin)
 
+    def _conv(self, cin, cout, kernel, stride, transpose=False):
+        """A ConvBNReLU, appended to ``layers``."""
+        self.layers.append(ConvBNReLU(
+            cin, cout, kernel, stride, transpose=transpose,
+            use_groupnorm=self.use_groupnorm, num_groups=self.num_groups))
+        return self.layers[-1]
+
+    def _stage(self, cin, nf, stride, layer_num):
+        """A stage's modules in the JAX module's creation order: the
+        strided 3x3 conv, then ``layer_num`` 3x3 convs."""
+        return [self._conv(cin, nf, 3, stride)] + [
+            self._conv(nf, nf, 3, 1) for _ in range(layer_num)]
+
     def backbone(self, x):
-        ups = []
-        for first, count, up in self._stages:
-            for j in range(first, first + count):
-                x = self.layers[j](x)
+        """{"out": the upsampled maps concatenated (the last stage's
+        output without deblocks), "up{i}", "stage{i}"}, as the JAX
+        module returns them."""
+        res, ups = {}, []
+        for i, (body, up) in enumerate(self._stages):
+            for module in body:
+                x = module(x)
+            res[f"stage{i}"] = x
             if up is not None:
-                ups.append(self.layers[up](x))
-        return torch.cat(ups, dim=1) if ups else x
+                ups.append(up(x))
+                res[f"up{len(ups) - 1}"] = ups[-1]
+        res["out"] = torch.cat(ups, dim=1) if ups else x
+        return res
 
     def forward(self, x):
         return self.backbone(x)
@@ -122,7 +177,7 @@ class RPNBase(RPNNoHeadBase):
             self.conv_dir_cls = nn.Conv2d(c, nloc * self.num_direction_bins, 1)
 
     def forward(self, x):
-        x = self.backbone(x)
+        x = self.backbone(x)["out"]
         nloc = self.num_anchor_per_loc
         cls = self.conv_cls(x)
         ret = {
@@ -139,3 +194,25 @@ class RPNBase(RPNNoHeadBase):
 @register_rpn
 class RPNV2(RPNBase):
     pass
+
+
+@register_rpn
+class RPNNoHead(RPNNoHeadBase):
+    """The backbone alone: returns the dict of ``backbone``."""
+
+
+@register_rpn
+class ResNetRPN(RPNBase):
+    """RPNBase with residual stages: each stage is ``max(layer_num, 1)``
+    BasicBlocks, the first strided (``blocks``, the JAX module's
+    ``BasicBlock_{n}``); the deblocks stay ConvBNReLUs (``layers``)."""
+
+    def _stage(self, cin, nf, stride, layer_num):
+        # called from RPNNoHeadBase.__init__, before a subclass's own
+        # __init__ body could make the list
+        if "blocks" not in self._modules:
+            self.blocks = nn.ModuleList()
+        body = [BasicBlock(cin, nf, stride)] + [
+            BasicBlock(nf, nf, 1) for _ in range(1, max(layer_num, 1))]
+        self.blocks.extend(body)
+        return body

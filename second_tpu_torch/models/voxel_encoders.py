@@ -1,8 +1,11 @@
 """Voxel feature encoders (twin of ``second_tpu/models/voxel_encoders.py``).
 
-Ported: :class:`SimpleVoxel` (car.fhd) and the pillar family
-(PointPillars): :class:`PillarFeatureNet`, :class:`PillarFeatureNetOld`,
-:class:`PillarFeatureNetRadius` and :class:`PillarFeatureNetRadiusHeight`.
+Every encoder of the JAX package: :class:`SimpleVoxel` (car.fhd,
+all.fhd), :class:`SimpleVoxelRadius`, the VFE stacks
+(:class:`VoxelFeatureExtractor`, :class:`VoxelFeatureExtractorV2`) and
+the pillar family (PointPillars): :class:`PillarFeatureNet`,
+:class:`PillarFeatureNetOld`, :class:`PillarFeatureNetRadius` and
+:class:`PillarFeatureNetRadiusHeight`.
 
 Inputs use the static layout: voxels [B, V, T, F] (zero padding),
 num_points [B, V], coords [B, V, 3] zyx (-1 padding rows). The pillar
@@ -34,11 +37,27 @@ class SimpleVoxel(nn.Module):
         self.num_input_features = num_input_features
 
     def forward(self, voxels, num_points, coords):
-        nf = self.num_input_features
-        if voxels.dim() == 3:
-            return voxels[..., :nf]
-        denom = num_points.clamp(min=1).to(voxels.dtype)[..., None]
-        return voxels[..., :nf].sum(dim=-2) / denom
+        return _voxel_mean(voxels, num_points, self.num_input_features)
+
+
+def _voxel_mean(voxels, num_points, nf):
+    """The mean of each voxel's points [B, V, nf]; voxels that are
+    already per-voxel means [B, V, F] pass through."""
+    if voxels.dim() == 3:
+        return voxels[..., :nf]
+    denom = num_points.clamp(min=1).to(voxels.dtype)[..., None]
+    return voxels[..., :nf].sum(dim=-2) / denom
+
+
+@register_vfe
+class SimpleVoxelRadius(SimpleVoxel):
+    """The voxel's mean point as (radius in xy, z, intensity...)
+    (voxel_encoder.py:227-255): [B, V, num_input_features - 1]."""
+
+    def forward(self, voxels, num_points, coords):
+        mean = _voxel_mean(voxels, num_points, self.num_input_features)
+        radius = torch.linalg.norm(mean[..., :2], dim=-1, keepdim=True)
+        return torch.cat([radius, mean[..., 2:]], dim=-1)
 
 
 def slot_mask(num_points, max_t, dtype=torch.float32):
@@ -54,6 +73,72 @@ def _cluster_offsets(voxels, num_points):
     denom = num_points.clamp(min=1).to(voxels.dtype)[..., None, None]
     mean = voxels[..., :3].sum(dim=-2, keepdim=True) / denom
     return voxels[..., :3] - mean
+
+
+class VFELayer(nn.Module):
+    """Pointwise Linear+BN+ReLU to out_channels / 2, with the max over
+    the T slots repeated beside each slot (voxel_encoder.py:50-80)."""
+
+    def __init__(self, in_channels, out_channels):
+        super().__init__()
+        self.linear_bn_relu = LinearBNReLU(in_channels, out_channels // 2)
+
+    def forward(self, x, voxel_mask):
+        x = self.linear_bn_relu(
+            x, mask=voxel_mask[..., None].expand(x.shape[:-1]))
+        # amax splits the gradient among tied slots (a voxel's padded
+        # slots tie), as JAX's max does
+        return torch.cat([x, x.amax(dim=-2, keepdim=True).expand_as(x)],
+                         dim=-1)
+
+
+class _VoxelFeatureExtractorBase(nn.Module):
+    """VFELayers of ``num_filters``, then Linear+BN+ReLU to the last
+    width and the max over the T slots, masking the padded slots after
+    each layer (voxel_encoder.py:82-204): voxels [B, V, T, F] ->
+    [B, V, num_filters[-1]]. The input is each point with its offset
+    from the voxel's mean (and its distance, ``with_distance``)."""
+
+    def __init__(self, num_input_features=4, num_filters=(32, 128),
+                 with_distance=False, voxel_size=(0.2, 0.2, 4),
+                 pc_range=(0, -40, -3, 70.4, 40, 1)):
+        super().__init__()
+        self.with_distance = with_distance
+        cin = num_input_features + 3 + int(with_distance)
+        self.vfe_layers = nn.ModuleList()
+        for out in num_filters:
+            self.vfe_layers.append(VFELayer(cin, out))
+            cin = out
+        self.linear_bn_relu = LinearBNReLU(cin, num_filters[-1])
+
+    def forward(self, voxels, num_points, coords):
+        voxel_mask = num_points > 0
+        mask = slot_mask(num_points, voxels.shape[-2], voxels.dtype)
+        feats = [voxels, _cluster_offsets(voxels, num_points)]
+        if self.with_distance:
+            feats.append(
+                torch.linalg.norm(voxels[..., :3], dim=-1, keepdim=True))
+        x = torch.cat(feats, dim=-1)
+        for layer in self.vfe_layers:
+            x = layer(x, voxel_mask) * mask
+        x = self.linear_bn_relu(
+            x, mask=voxel_mask[..., None].expand(x.shape[:-1])) * mask
+        return x.amax(dim=-2)
+
+
+@register_vfe
+class VoxelFeatureExtractor(_VoxelFeatureExtractorBase):
+    """Two VFELayers + the final Linear+BN+ReLU (voxel_encoder.py:82-140)."""
+
+    def __init__(self, num_filters=(32, 128), **kwargs):
+        if len(num_filters) != 2:
+            raise ValueError("VoxelFeatureExtractor takes two num_filters")
+        super().__init__(num_filters=num_filters, **kwargs)
+
+
+@register_vfe
+class VoxelFeatureExtractorV2(_VoxelFeatureExtractorBase):
+    """Any number of VFELayers (voxel_encoder.py:142-204)."""
 
 
 class PFNLayer(nn.Module):

@@ -32,7 +32,7 @@ from .registry import (
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     """Static loss and post-process configuration (the JAX
-    ``ModelSpec`` less its BEV-coder and multi-class NMS fields)."""
+    ``ModelSpec``)."""
 
     num_class: int
     box_code_size: int
@@ -58,14 +58,31 @@ class ModelSpec:
     dir_limit_offset: float = 0.0
     linear_dim: bool = False
     vec_encode: bool = False
+    bev_coder: bool = False
+    bev_z_fixed: float = -1.0
+    bev_h_fixed: float = 2.0
     use_rotate_nms: bool = True
+    multiclass_nms: bool = False
+    nms_class_agnostic: bool = False
     nms_score_thresholds: Tuple[float, ...] = (0.05,)
     nms_pre_max_sizes: Tuple[int, ...] = (1000,)
     nms_post_max_sizes: Tuple[int, ...] = (100,)
     nms_iou_thresholds: Tuple[float, ...] = (0.5,)
     post_center_range: Tuple[float, ...] = ()
+    # per-class anchor index ranges [start, end) for multi-class NMS
+    anchors_ranges: Tuple[Tuple[int, int], ...] = ()
 
     def decode(self, encodings, anchors):
+        if self.bev_coder:
+            # (x, y, w, l, r) of the anchors by slices (no host index)
+            bev = torch.cat([anchors[..., 0:2], anchors[..., 3:5],
+                             anchors[..., 6:7]], dim=-1)
+            ret = box_ops_torch.bev_box_decode(
+                encodings, bev, self.vec_encode, self.linear_dim)
+            z = torch.full_like(ret[..., :1], self.bev_z_fixed)
+            h = torch.full_like(ret[..., :1], self.bev_h_fixed)
+            return torch.cat(
+                [ret[..., :2], z, ret[..., 2:4], h, ret[..., 4:]], dim=-1)
         return box_ops_torch.second_box_decode(
             encodings, anchors, self.vec_encode, self.linear_dim)
 
@@ -87,8 +104,13 @@ class VoxelNet(nn.Module):
                  use_direction_classifier=True,
                  encode_background_as_zeros=True, num_direction_bins=2,
                  num_anchor_per_loc=2, box_code_size=7,
-                 voxel_size=(0.2, 0.2, 4), pc_range=(0, -40, -3, 70.4, 40, 1)):
+                 voxel_size=(0.2, 0.2, 4), pc_range=(0, -40, -3, 70.4, 40, 1),
+                 use_norm=True):
         super().__init__()
+        if not use_norm:
+            raise NotImplementedError(
+                "use_norm=False (biased convs without normalisation) is not "
+                "ported yet (ROADMAP.md queue 1 item 5)")
         self.num_class = num_class
         self.box_code_size = box_code_size
         self.num_direction_bins = num_direction_bins
@@ -273,35 +295,59 @@ def _single_frame_predict(spec: ModelSpec, box_preds, cls_preds, dir_preds,
         total_scores = torch.where(
             anchors_mask[:, None], total_scores,
             torch.full_like(total_scores, -math.inf))
-    if total_scores.shape[-1] == 1:
-        top_scores = total_scores[..., 0]
-        top_labels = torch.zeros(box_preds.shape[0], dtype=torch.long,
-                                 device=box_preds.device)
-    else:
-        top_scores, top_labels = torch.max(total_scores, dim=-1)
     # (x, y, w, l, r) by slices: a list index would copy from the host,
     # which a CUDA graph cannot capture
     bev_boxes = torch.cat(
         [box_preds[:, 0:2], box_preds[:, 3:5], box_preds[:, 6:7]], dim=-1)
-    idx, valid = nms_bev(
-        bev_boxes, top_scores,
-        pre_max_size=spec.nms_pre_max_sizes[0],
-        post_max_size=spec.nms_post_max_sizes[0],
-        iou_threshold=spec.nms_iou_thresholds[0],
-        score_threshold=spec.nms_score_thresholds[0],
-        rotated=spec.use_rotate_nms)
-    gi = idx.clamp(min=0)
-    boxes = box_preds[gi]
-    scores = torch.where(valid, top_scores[gi], 0.0)
-    labels = top_labels[gi]
+    if spec.multiclass_nms:
+        # one NMS per class over that class's anchors (all of them when
+        # class-agnostic), each with the class's own sizes and
+        # thresholds; the ranges are static, so each slice is a view
+        outs = []
+        for ci in range(spec.num_class):
+            s, e = ((0, box_preds.shape[0]) if spec.nms_class_agnostic
+                    else spec.anchors_ranges[ci])
+            cls_scores = total_scores[s:e, ci]
+            idx, valid = nms_bev(
+                bev_boxes[s:e], cls_scores,
+                pre_max_size=spec.nms_pre_max_sizes[ci],
+                post_max_size=spec.nms_post_max_sizes[ci],
+                iou_threshold=spec.nms_iou_thresholds[ci],
+                score_threshold=spec.nms_score_thresholds[ci],
+                rotated=spec.use_rotate_nms)
+            gi = idx.clamp(min=0)
+            outs.append((box_preds[s:e][gi],
+                         torch.where(valid, cls_scores[gi], 0.0),
+                         torch.full_like(idx, ci), dir_labels[s:e][gi],
+                         valid))
+        boxes, scores, labels, dirs, valid = (
+            torch.cat(parts) for parts in zip(*outs))
+    else:
+        if total_scores.shape[-1] == 1:
+            top_scores = total_scores[..., 0]
+            top_labels = torch.zeros(box_preds.shape[0], dtype=torch.long,
+                                     device=box_preds.device)
+        else:
+            top_scores, top_labels = torch.max(total_scores, dim=-1)
+        idx, valid = nms_bev(
+            bev_boxes, top_scores,
+            pre_max_size=spec.nms_pre_max_sizes[0],
+            post_max_size=spec.nms_post_max_sizes[0],
+            iou_threshold=spec.nms_iou_thresholds[0],
+            score_threshold=spec.nms_score_thresholds[0],
+            rotated=spec.use_rotate_nms)
+        gi = idx.clamp(min=0)
+        boxes = box_preds[gi]
+        scores = torch.where(valid, top_scores[gi], 0.0)
+        labels = top_labels[gi]
+        dirs = dir_labels[gi]
     if spec.use_direction_classifier:
         # yaw from the direction bin with the config's limit offset,
         # exactly as the JAX package (and the reference) reconstruct it
         period = 2 * math.pi / spec.num_direction_bins
         dir_rot = box_ops_torch.limit_period(
             boxes[..., 6] - spec.dir_offset, spec.dir_limit_offset, period)
-        yaw = dir_rot + spec.dir_offset + period * dir_labels[gi].to(
-            boxes.dtype)
+        yaw = dir_rot + spec.dir_offset + period * dirs.to(boxes.dtype)
         boxes = torch.cat([boxes[..., :6], yaw[..., None], boxes[..., 7:]],
                           dim=-1)
     if len(spec.post_center_range) > 0:

@@ -33,6 +33,27 @@ def second_box_decode(encodings, anchors, encode_angle_to_vector=False,
     return torch.cat([xg, yg, zg, wg, lg, hg, rg, *custom], dim=-1)
 
 
+def bev_box_decode(encodings, anchors, encode_angle_to_vector=False,
+                   smooth_dim=False):
+    """[..., 5] residuals ([..., 6] with the angle as a vector) + [..., 5]
+    (x, y, w, l, r) anchors -> [..., 5] BEV boxes."""
+    xa, ya, wa, la, ra = (anchors[..., i:i + 1] for i in range(5))
+    xt, yt, wt, lt = (encodings[..., i:i + 1] for i in range(4))
+    diag = torch.sqrt(wa ** 2 + la ** 2)
+    xg = xt * diag + xa
+    yg = yt * diag + ya
+    if smooth_dim:
+        wg, lg = (wt + 1) * wa, (lt + 1) * la
+    else:
+        wg, lg = torch.exp(wt) * wa, torch.exp(lt) * la
+    if encode_angle_to_vector:
+        rtx, rty = encodings[..., 4:5], encodings[..., 5:6]
+        rg = torch.atan2(rty + torch.sin(ra), rtx + torch.cos(ra))
+    else:
+        rg = encodings[..., 4:5] + ra
+    return torch.cat([xg, yg, wg, lg, rg], dim=-1)
+
+
 def limit_period(val, offset=0.5, period=math.pi):
     return val - torch.floor(val / period + offset) * period
 

@@ -1,11 +1,10 @@
-"""Loss functions (twin of ``second_tpu/ops/losses.py``, less the GHM
-losses).
+"""Loss functions (twin of ``second_tpu/ops/losses.py``).
 
 Formula parity with the reference loss zoo
 (second/pytorch/core/losses.py): TF-compatible elementwise sigmoid CE,
 sigmoid/softmax focal losses, weighted smooth-L1 with sigma +
-per-dimension code weights, weighted softmax (direction head), and the
-loss-weight preparation / sin-difference machinery from
+per-dimension code weights, weighted softmax (direction head), the GHM
+losses, and the loss-weight preparation / sin-difference machinery from
 second/pytorch/models/voxelnet.py:704-830.
 
 All functions take [B, A, ...] and return per-anchor losses; reduction
@@ -136,6 +135,59 @@ def weighted_softmax_loss(preds, targets_onehot, weights=None,
     if weights is not None:
         loss = loss * weights
     return loss
+
+
+def _ghm_weights(g, weights, bins, num_codes=1):
+    """Each element's gradient-harmonizing weight from its gradient norm
+    ``g`` in [0, 1]: num_examples / count[bin] / num_valid_bins, zero
+    outside ``weights`` > 0. The histogram is a scatter-add into a
+    fixed-size buffer: no host sync."""
+    if weights is None:
+        valid = torch.ones_like(g, dtype=torch.bool)
+    else:
+        valid = (weights > 0)[..., None].expand(g.shape)
+    validf = valid.to(g.dtype)
+    num_examples = (validf.sum() / num_codes).clamp(min=1.0)
+    bin_idx = (g * bins).to(torch.int64).clamp(0, bins - 1)
+    counts = torch.zeros(bins, dtype=g.dtype, device=g.device).scatter_add_(
+        0, torch.where(valid, bin_idx, 0).reshape(-1), validf.reshape(-1))
+    num_valid_bins = (counts > 0).sum().to(g.dtype).clamp(min=1.0)
+    per_bin = torch.where(counts > 0, num_examples / counts.clamp(min=1.0),
+                          0.0)
+    w = torch.where(valid, per_bin[bin_idx], 0.0) / num_valid_bins
+    return w, num_examples
+
+
+def ghm_c_loss(preds, targets_onehot, weights=None, bins=10):
+    """Gradient-harmonized classification loss (GHM-C; reference
+    second/pytorch/core/ghm_loss.py:17-75, momentum 0): sigmoid CE of
+    each element weighted by the inverse density of its gradient norm
+    |sigmoid(x) - y| among the valid elements. [B, A, C] -> [B, A, C]."""
+    bins = int(bins)
+    g = (torch.sigmoid(preds.detach()) - targets_onehot).abs()
+    w, num_examples = _ghm_weights(g, weights, bins)
+    ce = sigmoid_cross_entropy_with_logits(preds, targets_onehot)
+    return ce * w / num_examples
+
+
+def ghm_r_loss(preds, targets, weights=None, mu=0.02, bins=10,
+               code_weights=None):
+    """Gradient-harmonized regression loss (GHM-R; reference
+    second/pytorch/core/ghm_loss.py:78-141): the authentic smooth L1
+    sqrt(d^2 + mu^2) - mu, weighted by the inverse density of its
+    gradient norm |d| / sqrt(d^2 + mu^2). [B, A, C] -> [B, A, C]."""
+    bins = int(bins)
+    if code_weights is not None:
+        cw = _code_weight_tensor(tuple(code_weights), preds.dtype,
+                                 preds.device).reshape(-1)
+        preds = preds * cw
+        targets = targets * cw
+    diff = preds - targets
+    loss = torch.sqrt(diff * diff + mu * mu) - mu
+    d = diff.detach()
+    g = (d / torch.sqrt(mu * mu + d * d)).abs()
+    w, num_examples = _ghm_weights(g, weights, bins, preds.shape[-1])
+    return loss * w / num_examples
 
 
 # ---------------------------------------------------------------------------

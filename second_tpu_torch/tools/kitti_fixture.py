@@ -50,12 +50,14 @@ def _write_png(path, h, w):
 def make_scene_lidar(rng, num_cars=4, num_bg_points=6000,
                      points_per_object=200,
                      x_range=(5.0, 60.0), y_range=(-20.0, 20.0),
-                     min_gap=None):
-    """lidar-frame scene with cars in front of the camera (x > 5)."""
+                     min_gap=None, classes=None):
+    """lidar-frame scene with cars (or the {name: count} ``classes`` of
+    ``data.synthetic.CLASS_SIZES``) in front of the camera (x > 5)."""
     points, gt_boxes, names = make_scene(
         rng, num_objects=num_cars, num_bg_points=num_bg_points,
         x_range=x_range, y_range=y_range,
-        points_per_object=points_per_object, min_gap=min_gap)
+        points_per_object=points_per_object, min_gap=min_gap,
+        classes=classes)
     return points, gt_boxes, names
 
 
@@ -85,7 +87,8 @@ def build_kitti_dir(root, num_frames=4, seed=0, scene_kwargs=None):
     """Create a fake KITTI training tree; returns frame ids.
 
     scene_kwargs: forwarded to make_scene_lidar (e.g. KITTI-scale
-    density: num_cars=10, num_bg_points=16000)."""
+    density: num_cars=10, num_bg_points=16000; the four KITTI classes:
+    classes={"Car": 6, "Cyclist": 2, "Pedestrian": 3, "Van": 1})."""
     root = Path(root)
     for sub in ("velodyne", "label_2", "calib", "image_2"):
         (root / "training" / sub).mkdir(parents=True, exist_ok=True)

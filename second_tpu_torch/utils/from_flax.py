@@ -11,11 +11,18 @@ Inverts the layout table of ``second_tpu/utils/checkpoint_import.py``
   * MaskedBatchNorm scale/bias + batch_stats mean/var
                              -> weight/bias + running_mean/running_var
 
+  * GroupNorm scale/bias       -> weight/bias
+
 Module names map one to one (the port keeps the flax names), except
 flax's auto-named children: ``ConvBNReLU_{n}`` -> ``layers.{n}``,
-``PFNLayer_{n}`` -> ``pfn_layers.{n}``, ``Conv_0``/``ConvTranspose_0``
--> ``conv``, ``MaskedBatchNorm_0`` -> ``bn``, ``Dense_0`` -> ``linear``,
-``LinearBNReLU_0`` -> ``linear_bn_relu``.
+``PFNLayer_{n}`` -> ``pfn_layers.{n}``, ``VFELayer_{n}`` ->
+``vfe_layers.{n}``, ``BasicBlock_{n}`` -> ``blocks.{n}``,
+``Conv_0``/``ConvTranspose_0`` -> ``conv``, ``MaskedBatchNorm_0`` ->
+``bn``, ``GroupNorm_0`` -> ``gn``, ``Dense_0`` -> ``linear``,
+``LinearBNReLU_0`` -> ``linear_bn_relu``; inside a ``BasicBlock_{n}``,
+``Conv_{0,1}``/``MaskedBatchNorm_{0,1}`` -> ``conv1``/``bn1``,
+``conv2``/``bn2`` and the shortcut's ``Conv_2``/``MaskedBatchNorm_2``
+-> ``downsample_conv``/``downsample_bn``.
 """
 
 import re
@@ -24,10 +31,17 @@ import numpy as np
 import torch
 
 _CHILD = {"Conv_0": "conv", "ConvTranspose_0": "conv",
-          "MaskedBatchNorm_0": "bn", "Dense_0": "linear",
+          "MaskedBatchNorm_0": "bn", "GroupNorm_0": "gn", "Dense_0": "linear",
           "LinearBNReLU_0": "linear_bn_relu"}
+# the children of a BasicBlock_{n}
+_BLOCK_CHILD = {"Conv_0": "conv1", "MaskedBatchNorm_0": "bn1",
+                "Conv_1": "conv2", "MaskedBatchNorm_1": "bn2",
+                "Conv_2": "downsample_conv",
+                "MaskedBatchNorm_2": "downsample_bn"}
 # flax's auto-named lists of children -> the port's ModuleLists
-_LISTS = {"ConvBNReLU": "layers", "PFNLayer": "pfn_layers"}
+_LISTS = {"ConvBNReLU": "layers", "PFNLayer": "pfn_layers",
+          "VFELayer": "vfe_layers", "BasicBlock": "blocks"}
+_LIST_RE = re.compile(r"(%s)_(\d+)" % "|".join(_LISTS))
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -41,10 +55,14 @@ def _flatten(tree, prefix=()):
 
 def _module_path(path):
     out = []
-    for part in path:
-        m = re.fullmatch(r"(ConvBNReLU|PFNLayer)_(\d+)", part)
-        out.append(f"{_LISTS[m.group(1)]}.{m.group(2)}" if m
-                   else _CHILD.get(part, part))
+    for i, part in enumerate(path):
+        m = _LIST_RE.fullmatch(part)
+        if m:
+            out.append(f"{_LISTS[m.group(1)]}.{m.group(2)}")
+        elif i > 0 and path[i - 1].startswith("BasicBlock_"):
+            out.append(_BLOCK_CHILD[part])
+        else:
+            out.append(_CHILD.get(part, part))
     return ".".join(out)
 
 

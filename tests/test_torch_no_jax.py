@@ -14,7 +14,9 @@ device voxelizer, checkpoint, the eval into the official AP) followed by
 ``evaluate``, then ``create_data.kitti_data_prep`` on another 2-frame
 tree and one sampled car.fhd step through ``train`` (a car.fhd-shaped
 config with its GT-database sampler, host rulebooks, rotated NMS in the
-eval), and checks that none of the refused modules got loaded.
+eval), one request of all.fhd (four classes) cut to a small width
+with multi-class NMS, and checks that none of the refused modules got
+loaded.
 """
 
 import json
@@ -25,6 +27,7 @@ import sys
 import numpy as np
 
 from test_torch_fhd_train import _fhd_config
+from test_torch_multiclass import frame_points, reduced_text
 from test_torch_pointpillars import SMALL_PP_CONFIG, small_pp_points
 from test_torch_slice import SMALL_FHD_CONFIG, small_fhd_points
 from test_torch_train import CAR_BOXES
@@ -56,7 +59,8 @@ from second_tpu_torch.builders.dataset_builder import build_prep_func
 from second_tpu_torch.configs import loads_pipeline_config
 from second_tpu_torch.core.inference import InferenceContext, example_to_device
 from second_tpu_torch.data import merge_second_batch
-from second_tpu_torch.models import middle, pp_fast, voxel_encoders  # noqa
+from second_tpu_torch.models import middle, pp_fast, rpn, voxel_encoders  # noqa
+from second_tpu_torch.ops import box_ops_torch, losses  # noqa: F401
 from second_tpu_torch.ops import voxelize  # noqa: F401
 from second_tpu_torch.data import kitti_dataset, loader, prefetch  # noqa
 from second_tpu_torch.native import eval_native  # noqa: F401
@@ -68,7 +72,7 @@ from second_tpu_torch.utils import eval as kitti_eval  # noqa: F401
 from second_tpu_torch.utils import fire_lite, log_tool, timer  # noqa: F401
 
 (config_path, points_path, boxes_path, pp_config_path, pp_points_path,
- work, fhd_config_path) = sys.argv[1:8]
+ work, fhd_config_path, all_config_path, all_points_path) = sys.argv[1:10]
 with open(config_path) as f:
     cfg = loads_pipeline_config(f.read())
 points, boxes = np.load(points_path), np.load(boxes_path)
@@ -143,6 +147,13 @@ for split in ("train", "val"):
     (sets / f"{split}.txt").write_text("\n".join(map(str, ids)) + "\n")
 create_data.kitti_data_prep(str(fhd_root), imageset_dir=str(sets))
 train(fhd_config_path, str(Path(work) / "fhd_model"), device="cpu")
+# all.fhd (four classes) at a small width, one NMS per class
+all_ctx = InferenceContext()
+with open(all_config_path) as f:
+    all_ctx.build(loads_pipeline_config(f.read()), device="cpu")
+all_ctx.init_random(0)
+all_dets = all_ctx.inference(
+    all_ctx.get_inference_input_dict({}, np.load(all_points_path)))[0]
 loaded = sorted({m.split(".")[0] for m in sys.modules} & set(BLOCKED))
 print(json.dumps({"loaded": loaded, "n_frames": len(dets),
                   "box_shape": list(dets[0]["box3d_lidar"].shape),
@@ -158,7 +169,14 @@ print(json.dumps({"loaded": loaded, "n_frames": len(dets),
                   "pp_flat": pp.flat_pp,
                   "pp_box_shape": list(pp_dets["box3d_lidar"].shape),
                   "pp_finite": bool(np.isfinite(pp_dets["box3d_lidar"]).all()),
-                  "official": "official" in res["results"]}))
+                  "official": "official" in res["results"],
+                  "all_fhd_multiclass": all_ctx.parts["spec"].multiclass_nms,
+                  "all_fhd_classes": all_ctx.parts["spec"].num_class,
+                  "all_fhd_box_shape": list(all_dets["box3d_lidar"].shape),
+                  "all_fhd_finite": bool(
+                      np.isfinite(all_dets["box3d_lidar"]).all()),
+                  "all_fhd_labels": sorted(
+                      set(all_dets["label_preds"].tolist()))}))
 """
 
 
@@ -193,11 +211,16 @@ def test_slice_runs_without_jax(tmp_path):
     pp_config_path.write_text(SMALL_PP_CONFIG)
     pp_points_path = tmp_path / "pp_points.npy"
     np.save(pp_points_path, small_pp_points())
+    all_config_path = tmp_path / "all_fhd.config"
+    all_config_path.write_text(reduced_text(multiclass_nms=True))
+    all_points_path = tmp_path / "all_points.npy"
+    np.save(all_points_path, frame_points(0))
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(config_path), str(points_path),
          str(boxes_path), str(pp_config_path), str(pp_points_path),
-         str(tmp_path), str(_fhd_train_config(tmp_path))],
+         str(tmp_path), str(_fhd_train_config(tmp_path)),
+         str(all_config_path), str(all_points_path)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -213,6 +236,10 @@ def test_slice_runs_without_jax(tmp_path):
     assert result["pp_box_shape"][0] > 0 and result["pp_box_shape"][1:] == [7]
     assert result["pp_finite"]
     assert result["official"]
+    assert result["all_fhd_multiclass"] and result["all_fhd_classes"] == 4
+    assert result["all_fhd_box_shape"][1:] == [7]
+    assert result["all_fhd_finite"]
+    assert set(result["all_fhd_labels"]) <= {0, 1, 2, 3}
     log = (tmp_path / "model" / "log.txt").read_text()
     assert "Evaluation official" in log
     assert (tmp_path / "model" / "voxelnet-1.ckpt").is_file()
