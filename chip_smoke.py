@@ -14,8 +14,11 @@ xyres_16.config``), then car.fhd training through ``train`` and
 route (points shipped; the voxels and every rulebook built on the card)
 through ``InferenceContext``, ``train`` and ``evaluate``, and the KITTI
 multi-class SECOND (``configs/all.fhd.config``: Car, Cyclist, Pedestrian,
-Van) through the same entry points, and all three under mixed precision
-(bf16, ``enable_mixed_precision``). Phases 6-9
+Van) through the same entry points, all three under mixed precision
+(bf16, ``enable_mixed_precision``), and the nuScenes multi-head
+PointPillars (``configs/nuscenes/all.pp.mhead.config``, 10 classes)
+through ``InferenceContext``, ``train`` and ``evaluate`` on a
+nuScenes-format fixture tree. Phases 6-9
 clear the sampler
 for ``make_kitti_scene`` frames, which have no database; the fixture
 trees of phases 9 and 10 have one. Phases, each printed as it runs:
@@ -132,7 +135,11 @@ trees of phases 9 and 10 have one. Phases, each printed as it runs:
      the zoo modules at small widths, card against CPU and a float64
      CPU run, forward and backward: VFELayer, VoxelFeatureExtractor(V2),
      SimpleVoxelRadius, a GroupNorm RPNV2, RPNNoHead, ResNetRPN,
-     bev_box_decode, GHM-C and GHM-R;
+     bev_box_decode, GHM-C and GHM-R; last, all.fhd's learning proof
+     (``tools/overfit_ap.py --model all``, 1000 steps on 24 fixture
+     frames of two objects of each class): every class's bev and 3d
+     AP at ``overfit_ap.ALL_FLOOR`` or above (IoU 0.7 for Car and Van,
+     0.5 for Pedestrian and Cyclist);
  13. mixed precision (``bf16``): K1-bf16 against its plain version on
      phase 2's 10 convs (max error, also in bf16 ulps; two calls bitwise
      equal; wrapper, device-only and plain ms; its bound); then, counted
@@ -146,7 +153,25 @@ trees of phases 9 and 10 have one. Phases, each printed as it runs:
      bf16 ``evaluate()`` of phase 10's checkpoint; then a PointPillars
      bf16 step at batch 1 against the CPU's bf16 step and a float64 one,
      the host syncs of a bf16 step (none allowed), and car.fhd's bf16
-     ``train()``, which must raise ``NotImplementedError``.
+     ``train()``, which must raise ``NotImplementedError``;
+ 14. the nuScenes multi-head PointPillars (``nusc_mhead``) at its
+     published width (random weights from seed 0, batch norms drawn as
+     in phase 13): an 8-frame fixture tree at nuScenes density
+     (``tools/nusc_fixture.py``: a key frame and 9 sweeps of 34 720
+     points); 4 ``InferenceContext`` requests (host and device ms, the
+     points shipped against those in range, the points buffer's
+     overflow warnings: none allowed, the detections per class; K4, and
+     K3 where the NMS rotates, launched); frame 0: the flat path's
+     canvas and preds against the module path's on the card, card
+     against CPU (preds, detections matched), the CPU's candidates
+     through K4 (K3) on the card keeping exactly the CPU's boxes;
+     ``create_groundtruth_database("NuScenesDataset", ...)``; a sampled
+     batch (frame 0's loss card against CPU, the host syncs of a
+     batch-2 step: none allowed); ``train()`` 6 + 2 resumed steps at
+     the reader's batch with its sample groups and ``evaluate()`` (the
+     10 classes' kitti-style AP); the device voxelizer with
+     ``full_empty_part_with_mean`` against the host voxelizer on frame
+     0.
 
 Then the script's wall time, one JSON line with the kernels (``ms``
 times the wrapper,
@@ -156,10 +181,11 @@ training batch's 10; ``bound_ms`` is the fp32 bound and
 ``bound_tf32x3_ms`` the 3xTF32 one; K1's ``max_abs_err`` is its largest over phases 2
 and 6; K4's ``pp_candidates`` holds phase 8's numbers; ``launches`` count
 the main paths' runs, phases 3, 7, 8, 9 and 10's train() and evaluate()
-runs and phases 11 and 12's requests, train() and evaluate() runs, with
-``launches_by_path`` splitting them, phase 13's as ``bf16``;
+runs and phases 11, 12 and 14's requests, train() and evaluate() runs,
+with ``launches_by_path`` splitting them, phase 13's as ``bf16`` and
+phase 14's as ``nusc_mhead``;
 ``proof_launches``
-counts the two learning proofs apart), and as the last line
+counts the three learning proofs apart), and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for the whole run (the
 slices before phase 13 are fp32). K1-bf16's ``bound_ms`` counts bf16
 bytes at 3.35 TB/s and its operations at 989 TFLOP/s. Any failed check
@@ -169,6 +195,7 @@ before printing any result.
 
 import copy
 import json
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -182,9 +209,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from second_tpu_torch.builders import voxel_builder
 from second_tpu_torch.builders.dataset_builder import (
-    POINTS_BUFFER,
     build_prep_func,
+    points_capacity,
 )
 from second_tpu_torch.builders.network_builder import build_network
 from second_tpu_torch.configs import load_pipeline_config, schema
@@ -197,6 +225,9 @@ from second_tpu_torch.core.inference import (
 from second_tpu_torch.csrc import build
 from second_tpu_torch.data import make_kitti_scene, merge_second_batch
 from second_tpu_torch.data.kitti_dataset import KittiDataset
+from second_tpu_torch.data.gt_database import create_groundtruth_database
+from second_tpu_torch.data.nuscenes_dataset import NuScenesDataset
+from second_tpu_torch.data.preprocess import pad_points
 from second_tpu_torch.models.layers import MaskedBatchNorm
 from second_tpu_torch.models.middle import scatter_canvas
 from second_tpu_torch.models.registry import (
@@ -244,6 +275,7 @@ from second_tpu_torch.ops.voxelize import voxelize
 from second_tpu_torch.tools import overfit_ap
 from second_tpu_torch.tools.kitti_fixture import build_kitti_dir
 from second_tpu_torch.tools.nms_profile import clustered_boxes
+from second_tpu_torch.tools.nusc_fixture import build_nusc_dir
 from second_tpu_torch.train import optimizer as opt_builder
 from second_tpu_torch.train.__main__ import evaluate, train
 from second_tpu_torch.train.state import (
@@ -252,6 +284,8 @@ from second_tpu_torch.train.state import (
     make_voxelizer_fn,
 )
 
+# the rows a KITTI frame's point buffer holds (the dataset's capacity)
+POINTS_BUFFER = KittiDataset.PointsCapacity
 CONFIG = "configs/car.fhd.config"
 PP_CONFIG = "configs/pointpillars/car/xyres_16.config"
 N_FRAMES = 4
@@ -336,6 +370,19 @@ ALL_SCENE = dict(classes={"Car": 6, "Pedestrian": 2, "Cyclist": 1, "Van": 1},
                  num_bg_points=16000, points_per_object=250)
 ALL_TRAIN_STEPS = 6
 ZOO_REL_TOL = 1e-4
+# all.fhd's learning proof (the last step of phase 12:
+# tools/overfit_ap.py --model all): each class's bev and 3d AP at
+# overfit_ap.ALL_FLOOR or above
+ALL_PROOF_STEPS = 1000
+# the nuScenes multi-head PointPillars (phase 14): a fixture tree of
+# NUSC_FRAMES frames at nuScenes density (tools/nusc_fixture.py: a key
+# frame and 9 sweeps of 34 720 points, boxes of all 10 classes), 4
+# requests, train() 6 + 2 resumed steps at the reader's batch with its
+# sample groups, evaluate()
+MHEAD_CONFIG = "configs/nuscenes/all.pp.mhead.config"
+NUSC_FRAMES = 8
+NUSC_TRAIN_STEPS = 6
+NUSC_RESUME_STEPS = 2
 ZOO_GRAD_L2_TOL = 1e-4
 
 # mixed precision (phase 13): each model's bf16 preds against its f32
@@ -417,12 +464,16 @@ PATH_KERNELS = {
     # PointPillars, PointPillars' bf16 train() and evaluate(), car.fhd's
     # bf16 evaluate()
     "bf16": ("sparse_conv_gather_gemm_bf16", "rotated_iou", "greedy_nms"),
+    # phase 14: the nuScenes mhead's requests, train() evals and
+    # evaluate() (standup NMS: K4; K3 where a config rotates it)
+    "nusc_mhead": ("greedy_nms",),
 }
 # the learning proofs (tools/overfit_ap.run), counted apart from the
 # main paths
 PROOF_KERNELS = {
     "pp_proof": PATH_KERNELS["pp_train"],
     "fhd_proof": PATH_KERNELS["fhd_train"],
+    "all_proof": PATH_KERNELS["all_fhd"],
 }
 # the 10 sparse convs of SpMiddleFHD (scales 0-2): (weight, rulebook,
 # submanifold)
@@ -757,7 +808,8 @@ def _nms_steps(spec, preds, anchors, device, ci=None):
     keep mask: over every anchor with its best class's score (car.fhd:
     one class, background encoded as zeros), or with ``ci`` over class
     ``ci``'s anchors and scores under its own settings (multi-class
-    NMS)."""
+    NMS); the candidates' IoU rotated (K3) or standup, as the config's
+    NMS takes it."""
     box = spec.decode(preds["box_preds"][0].to(device), anchors[0].to(device))
     probs = torch.sigmoid(preds["cls_preds"][0].to(device))
     if ci is None:
@@ -769,7 +821,7 @@ def _nms_steps(spec, preds, anchors, device, ci=None):
     k = spec.nms_pre_max_sizes[c]
     top_s, top_i = top_s[:k], top_i[:k]
     cand = box[top_i][:, [0, 1, 3, 4, 6]].contiguous()
-    iou = cuda_iou.rotated_iou_matrix(cand, cand)
+    iou = candidate_iou(cand, spec.use_rotate_nms)
     valid = top_s >= spec.nms_score_thresholds[c]
     keep = cuda_nms.greedy_suppress(iou, valid, spec.nms_iou_thresholds[c])
     return {"box": box.cpu(), "scores": scores.cpu(), "top_s": top_s.cpu(),
@@ -794,14 +846,18 @@ def _nms_disagreement(spec, preds, anchors, device, ci=None):
         f"{cpu['top_s'][0].item():.9g}, top-k ranks that differ "
         f"{int((cpu['top'] != dev['top']).sum())} of {len(cpu['top'])}, "
         f"keep flags that differ {int((cpu['keep'] != dev['keep']).sum())}")
-    # the same candidates in the same order through K3 and K4 on the card
+    # the same candidates in the same order through K3 (or the standup
+    # IoU) and K4 on the card
     cand = cpu["cand"].to(device)
-    iou = cuda_iou.rotated_iou_matrix(cand, cand)
-    far = cuda_iou.far_pairs(cand, cand)
-    check(torch.equal(iou[far], torch.zeros_like(iou[far])),
-          "K3 on frame 0's candidates: a rejected pair is not exactly 0.0")
-    log(f"{label}: frame 0's {len(cand)} NMS candidates: pairs surviving "
-        f"K3's far-pair reject {1 - far.float().mean().item():.4f}")
+    iou = candidate_iou(cand, spec.use_rotate_nms)
+    if spec.use_rotate_nms:
+        far = cuda_iou.far_pairs(cand, cand)
+        check(torch.equal(iou[far], torch.zeros_like(iou[far])),
+              "K3 on frame 0's candidates: a rejected pair is not exactly "
+              "0.0")
+        log(f"{label}: frame 0's {len(cand)} NMS candidates: pairs "
+            f"surviving K3's far-pair reject "
+            f"{1 - far.float().mean().item():.4f}")
     keep = cuda_nms.greedy_suppress(iou, cpu["valid"].to(device), thr).cpu()
     iou = iou.cpu()
     both = cpu["valid"][:, None] & cpu["valid"][None, :]
@@ -809,7 +865,9 @@ def _nms_disagreement(spec, preds, anchors, device, ci=None):
     pairs = (flip & torch.ones_like(flip).triu(1)).nonzero().tolist()
     keep_diff = int((keep != cpu["keep"]).sum())
     iou_diff = (iou - cpu["iou"])[both].abs().max().item() if both.any() else 0.0
-    log(f"{label}: the CPU's candidates through K3 and K4 on the card: "
+    log(f"{label}: the CPU's candidates through "
+        f"{'K3' if spec.use_rotate_nms else 'the standup IoU'} and K4 on "
+        f"the card: "
         f"IoU max |diff| {iou_diff:.3e}, valid pairs on opposite sides of "
         f"{thr}: {len(pairs)}, keep flags that differ {keep_diff} (kept "
         f"{int(cpu['keep'].sum())} of {int(cpu['valid'].sum())} valid)")
@@ -1612,17 +1670,21 @@ def _loss_of(net, spec, example, voxelizer=None):
                             voxelizer)["loss"].item()
 
 
-def fhd_step_checks(config, root, device, device_route=False, label=None):
+def fhd_step_checks(config, root, device, device_route=False, label=None,
+                    dataset=None):
     """A sampled car.fhd batch from the train reader: frame 0's loss on
     the card against the CPU, and the host syncs of a batch-2 step. The
     device route ships points and compact targets; the step voxelizes
-    and builds the rulebooks on the device."""
+    and builds the rulebooks on the device (or pillarizes, for a
+    PointPillars config). ``dataset``: where the frames come from, by
+    default the KITTI tree at ``root``."""
     label = label or ("fhd device route" if device_route else "fhd")
     cfg = load_pipeline_config(config)
     parts = build_network(cfg, device)
     init_weights(parts["net"], torch.Generator().manual_seed(0))
     np.random.seed(0)
-    kwargs = (dict(emit_points=POINTS_BUFFER, compact_targets=True)
+    capacity = points_capacity(cfg.train_input_reader)
+    kwargs = (dict(emit_points=capacity, compact_targets=True)
               if device_route else {})
     prep = build_prep_func(cfg.train_input_reader, parts, training=True,
                            **kwargs)
@@ -1630,7 +1692,7 @@ def fhd_step_checks(config, root, device, device_route=False, label=None):
         parts["voxel_generator"],
         cfg.train_input_reader.preprocess.max_number_of_voxels)
         if device_route else None)
-    dataset = KittiDataset(root_path=str(root), info_path=str(
+    dataset = dataset or KittiDataset(root_path=str(root), info_path=str(
         root / "kitti_infos_train.pkl"))
     inputs = [dataset.get_sensor_data(i) for i in range(2)]
     own = [len(d["lidar"]["annotations"]["names"]) for d in inputs]
@@ -1639,7 +1701,7 @@ def fhd_step_checks(config, root, device, device_route=False, label=None):
     ms = (time.perf_counter() - t0) * 1e3 / 2
     batch = merge_second_batch(frames)
     shipped = (f"points shipped {batch['points_count'][:, 0].tolist()} of "
-               f"{POINTS_BUFFER}" if device_route else
+               f"{capacity}" if device_route else
                f"active per stage {batch['sparse_active_counts'].tolist()}")
     positives = (batch["pos_count"][:, 0] if device_route
                  else (batch["labels"] > 0).sum(1)).tolist()
@@ -1673,14 +1735,17 @@ def fhd_step_checks(config, root, device, device_route=False, label=None):
 
 def fhd_train_runs(config, root, work, device, label, steps, resume_steps,
                    device_voxelize="auto", base_config=CONFIG,
-                   frames=FHD_FRAMES, mixed_precision=False):
-    """A config (car.fhd, all.fhd, or PointPillars in bf16:
-    ``base_config`` read as ``config``) through ``train`` (``steps``
-    steps with ``measure_time``), ``train(resume=True)`` for
-    ``resume_steps`` more (none when 0), then ``evaluate``, on the
+                   frames=FHD_FRAMES, mixed_precision=False,
+                   resume_config=None, metric="official"):
+    """A config (car.fhd, all.fhd, the nuScenes mhead, or PointPillars
+    in bf16: ``base_config`` read as ``config``) through ``train``
+    (``steps`` steps with ``measure_time``), ``train(resume=True)`` for
+    ``resume_steps`` more (none when 0; on ``resume_config``, by default
+    ``fixture_config`` of ``base_config``), then ``evaluate``, on the
     fixture tree of ``frames`` frames at ``root``, each run ending in the
-    official eval (K3 where NMS rotates, K4). Returns the kernel
-    launches of those runs."""
+    dataset's eval, ``metric`` (KITTI's "official", nuScenes'
+    kitti-style "kitti.official"; K3 where NMS rotates, K4). Returns the
+    kernel launches of those runs."""
     batch = load_pipeline_config(config).train_input_reader.batch_size
     model_dir = work / f"model_{label}"
     reset_launches()
@@ -1701,7 +1766,7 @@ def fhd_train_runs(config, root, work, device, label, steps, resume_steps,
     check(loss[-1] < loss[0], f"{label} train: loss did not fall: {loss}")
     check((model_dir / f"voxelnet-{steps}.ckpt").is_file(),
           f"{label} train: no checkpoint at the last step")
-    check("Evaluation official" in text, f"{label} train: no official eval")
+    check(f"Evaluation {metric}" in text, f"{label} train: no {metric} eval")
     mid = range(2, steps)
     log(f"{label} train(): {steps} steps at batch {batch} with the "
         f"sampler on {frames} fixture frames, device_voxelize="
@@ -1720,9 +1785,9 @@ def fhd_train_runs(config, root, work, device, label, steps, resume_steps,
     total = steps + resume_steps
     if resume_steps:
         t0 = time.perf_counter()
-        train(fixture_config(base_config, root,
-                             work / f"{label}_resume.config", total,
-                             mixed_precision),
+        train(resume_config or fixture_config(
+                  base_config, root, work / f"{label}_resume.config", total,
+                  mixed_precision),
               str(model_dir), resume=True, display_step=1,
               measure_time=True, device_voxelize=device_voxelize,
               device=device)
@@ -1731,8 +1796,8 @@ def fhd_train_runs(config, root, work, device, label, steps, resume_steps,
               f"{label} resume: logged steps {sorted(losses)}")
         check((model_dir / f"voxelnet-{total}.ckpt").is_file(),
               f"{label} resume: no checkpoint")
-        check(text.count("Evaluation official") == 2,
-              f"{label} resume: no official eval")
+        check(text.count(f"Evaluation {metric}") == 2,
+              f"{label} resume: no {metric} eval")
         log(f"{label} train(resume=True): restored step {steps}, "
             f"steps {steps + 1}-{total} losses "
             f"{[round(losses[i], 6) for i in range(steps + 1, total + 1)]}"
@@ -1743,8 +1808,8 @@ def fhd_train_runs(config, root, work, device, label, steps, resume_steps,
                    result_path=str(work / f"eval_{label}"),
                    device_voxelize=device_voxelize, device=device)
     wall = time.perf_counter() - t0
-    check("official" in res["results"], f"{label} evaluate: no official AP")
-    official = res["results"]["official"].splitlines()
+    check(metric in res["results"], f"{label} evaluate: no {metric} AP")
+    official = res["results"][metric].splitlines()
     log(f"{label} evaluate(): {frames} frames in {wall:.3f} s "
         f"({frames / wall:.3f} fps with the set-up and the AP), "
         f"random start + {total} steps: " + " | ".join(official))
@@ -2296,8 +2361,33 @@ def phase_all_fhd(device, work):
     log(f"all.fhd: launches in the requests, train() and evaluate() runs: "
         f"{launches}")
     all_fhd_zoo(device)
+    proof_launches = all_fhd_proof(device, work)
     log(f"phase 12 (all_fhd): {time.perf_counter() - t_phase:.3f} s")
-    return launches
+    return launches, proof_launches
+
+
+def all_fhd_proof(device, work):
+    """all.fhd's learning proof (``tools/overfit_ap.py --model all``):
+    each class's official AP after ``ALL_PROOF_STEPS`` steps, bev and 3d
+    at ``overfit_ap.ALL_FLOOR`` or above. Returns its kernel launches."""
+    reset_launches()
+    t0 = time.perf_counter()
+    proof = overfit_ap.run(steps=ALL_PROOF_STEPS, out=str(work / "proof"),
+                           device=device, model="all")
+    wall = time.perf_counter() - t0
+    proof_launches = read_launches("all_proof")
+    log(f"all.fhd learning proof (second_tpu_torch.tools.overfit_ap "
+        f"--model all, {ALL_PROOF_STEPS} steps, {proof['frames']} frames, "
+        f"GT {proof['num_gt']}; IoU 0.7 Car and Van, 0.5 Cyclist and "
+        f"Pedestrian): " + "; ".join(
+            f"{name} bbox {ap['bbox']}, bev {ap['bev']}, 3d {ap['3d']}, "
+            f"aos {ap['aos']}" for name, ap in proof["classes"].items())
+        + f"; wall {wall:.3f} s; floor {overfit_ap.ALL_FLOOR} on bev and 3d")
+    check(overfit_ap.passed(proof),
+          f"all.fhd learning proof below {overfit_ap.ALL_FLOOR}: "
+          f"{proof['classes']}")
+    log(f"all.fhd learning proof: launches {proof_launches}")
+    return proof_launches
 
 
 def k1_bf16_kernel(ctx, device):
@@ -2604,6 +2694,225 @@ def phase_bf16(ctx, device, work, pp_root, fhd_root):
     return launches, results
 
 
+def nusc_config(root, path, steps):
+    """The published mhead config reading the fixture tree at ``root``
+    (its infos and GT database), ``steps`` steps, no periodic eval or
+    timed checkpoint within them."""
+    cfg = load_pipeline_config(MHEAD_CONFIG)
+    for reader, split in ((cfg.train_input_reader, "train"),
+                          (cfg.eval_input_reader, "val")):
+        reader.dataset.kitti_root_path = str(root)
+        reader.dataset.kitti_info_path = str(root / f"infos_{split}.pkl")
+    cfg.train_input_reader.preprocess.database_sampler.database_info_path = (
+        str(root / "kitti_dbinfos_train.pkl"))
+    cfg.train_config.steps = steps
+    cfg.train_config.save_checkpoints_secs = 3600
+    path.write_text(cfg.to_text())
+    return str(path)
+
+
+def nusc_requests(ctx, dataset):
+    """``N_FRAMES`` requests of the fixture's frames (a nuScenes info,
+    its 10 accumulated sweeps): host preparation and device inference
+    (CUDA-synchronised), the points shipped against those in range, the
+    points buffer's overflow warnings (none allowed), the detections per
+    class. Returns the kernel launches made during them."""
+    spec, gen = ctx.parts["spec"], ctx.parts["voxel_generator"]
+    names = ctx.parts["target_assigner"].classes
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for i in range(N_FRAMES):
+        sensor = dataset.get_sensor_data(i)
+        points = sensor["lidar"]["points"]
+        in_range = pad_points(points, gen.point_cloud_range,
+                              len(points))[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            example = ctx.get_inference_input_dict(sensor["metadata"],
+                                                   points)
+        t1 = time.perf_counter()
+        dets = ctx.inference(example)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        overflow = sum("buffer overflow" in str(w.message) for w in rec)
+        shipped = int(example["points_count"][0, 0])
+        boxes, labels = dets[0]["box3d_lidar"], dets[0]["label_preds"]
+        check(boxes.ndim == 2 and boxes.shape[1] == 7 and len(boxes) > 0
+              and np.isfinite(boxes).all(), f"nusc frame {i}: bad boxes")
+        check(overflow == 0 and shipped == in_range,
+              f"nusc frame {i}: shipped {shipped} of {in_range} in-range "
+              f"points, {overflow} overflow warnings")
+        per_class = {names[c]: int((labels == c).sum())
+                     for c in range(spec.num_class)}
+        log(f"nusc frame {i} ({sensor['metadata']['token']}): "
+            f"{len(points)} points of 10 sweeps, {shipped} shipped of "
+            f"{ctx.points_capacity} ({in_range} in range; overflow warnings "
+            f"{overflow}), {int(example['num_voxels'][0, 0])} pillars on "
+            f"the host, {len(boxes)} detections {per_class}, host prep "
+            f"{(t1 - t0) * 1e3:.3f} ms, device inference "
+            f"{(t2 - t1) * 1e3:.3f} ms, total {(t2 - t0) * 1e3:.3f} ms")
+    launches = read_launches("nusc_mhead")
+    if spec.use_rotate_nms:
+        check(launches["rotated_iou"] > 0,
+              "the nusc_mhead path never launched rotated_iou")
+    log(f"nusc mhead: launches in the {N_FRAMES} requests: {launches}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return launches
+
+
+def nusc_reference(ctx, dataset, device):
+    """Frame 0: the flat pillar path's canvas and preds against the
+    module path's (``voxelize`` -> the encoder -> the scatter -> the
+    network) on the card; the card against the CPU (preds, detections
+    matched as in phase 4); the CPU's NMS candidates through K4 (and K3
+    where the NMS rotates) on the card keep exactly the CPU's boxes."""
+    sensor = dataset.get_sensor_data(0)
+    example = ctx.get_inference_input_dict(sensor["metadata"],
+                                           sensor["lidar"]["points"])
+    preds, dets = ctx.run(example)
+    net = ctx.parts["net"]
+    ex = example_to_device(example, device)
+    pts, n, vs, rmin, grid, max_voxels, t = _pp_flat_inputs(ctx, ex)
+    with torch.no_grad():
+        flat = flat_pillarize(pts, n, vs, rmin, grid, max_voxels, t)
+        bev_flat = flat_pfn_bev(net.voxel_feature_extractor, *flat[:5],
+                                max_points_per_voxel=t, grid_size=grid)[None]
+        voxels, coords, counts, nv = voxelize(pts, n, vs, rmin, grid,
+                                              max_voxels, t)
+        bev_mod = net.middle_feature_extractor(
+            net.voxel_feature_extractor(voxels[None], counts[None],
+                                        coords[None]), coords[None])
+        preds_mod = net(voxels[None], counts[None], coords[None])
+    err = (bev_flat - bev_mod).abs().max().item()
+    check(torch.allclose(bev_flat, bev_mod, atol=PP_CANVAS_TOL,
+                         rtol=PP_CANVAS_TOL),
+          f"nusc: flat canvas vs module path max err {err}")
+    rel = max(_route_rel(preds[k], preds_mod[k]) for k in preds)
+    check(rel <= PREDS_REL_TOL,
+          f"nusc: flat path preds vs module path rel err {rel}")
+    log(f"nusc reference: flat path vs module path on the card, canvas "
+        f"{tuple(bev_flat.shape)} of {int(nv)} pillars max err {err:.3e}, "
+        f"preds rel err {rel:.3e}")
+    cpu = InferenceContext()
+    cpu.build(MHEAD_CONFIG, device="cpu")
+    cpu.parts["net"].load_state_dict(net.state_dict())
+    t0 = time.perf_counter()
+    preds_cpu, dets_cpu = cpu.run(example)
+    log(f"nusc reference: frame 0 on the CPU took "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host clock)")
+    for key in preds:
+        rel = _route_rel(preds[key].cpu(), preds_cpu[key])
+        check(rel <= PREDS_REL_TOL,
+              f"nusc {key}: card vs CPU rel err {rel} > {PREDS_REL_TOL}")
+        log(f"nusc reference: {key} {tuple(preds_cpu[key].shape)} card vs "
+            f"CPU rel err {rel:.3e}")
+    frac, _, _ = _match(_ragged(dets), _ragged(dets_cpu))
+    log(f"nusc reference: detections card {int(dets['valid'].sum())}, CPU "
+        f"{int(dets_cpu['valid'].sum())}, matched {frac:.4f}")
+    check(frac >= FRAME_MATCH_MIN,
+          f"nusc detections matched {frac} < {FRAME_MATCH_MIN}")
+    anchors = torch.from_numpy(example["anchors"].astype(np.float32))
+    straddles, keep_diff = _nms_disagreement(
+        ctx.parts["spec"], preds_cpu, anchors, device)
+    check(straddles == 0 and keep_diff == 0,
+          f"nusc: the CPU's candidates on the card: {straddles} IoU pairs "
+          f"straddle the threshold, {keep_diff} keep flags differ")
+
+
+def nusc_full_mean(dataset, device):
+    """The device voxelizer (``make_voxelizer_fn``) of the mhead's
+    generator with ``full_empty_part_with_mean`` set, on frame 0's
+    in-range points on the card, against the host voxelizer: the same
+    voxels (compared by coordinate), counts and slot values."""
+    cfg = load_pipeline_config(MHEAD_CONFIG)
+    cfg.model.second.voxel_generator.full_empty_part_with_mean = True
+    gen = voxel_builder.build(cfg.model.second.voxel_generator)
+    max_voxels = cfg.eval_input_reader.preprocess.max_number_of_voxels
+    points = dataset.get_sensor_data(0)["lidar"]["points"]
+    host = gen.generate_multi_gpu(points, max_voxels)
+    buf, count = pad_points(points, gen.point_cloud_range,
+                            points_capacity(cfg.eval_input_reader))
+    voxels, counts, coords = (t[0].cpu().numpy() for t in make_voxelizer_fn(
+        gen, max_voxels)(torch.from_numpy(buf[None]).to(device),
+                         torch.tensor([[count]], dtype=torch.int32,
+                                      device=device)))
+
+    def by_coords(c, *arrays):
+        keep = c[:, 0] >= 0
+        order = np.lexsort(c[keep].T[::-1])
+        return [a[keep][order] for a in (c,) + arrays]
+
+    nv = int(host["voxel_num"])
+    hc, hn, hv = by_coords(host["coordinates"][:nv],
+                           host["num_points_per_voxel"][:nv],
+                           host["voxels"][:nv])
+    c, cn, v = by_coords(coords, counts, voxels)
+    check(np.array_equal(c, hc) and np.array_equal(cn, hn),
+          f"full_mean: device voxels {len(c)} vs host {len(hc)} differ in "
+          f"coordinates or counts")
+    err = float(np.abs(v - hv).max())
+    filled = int(((np.arange(v.shape[1])[None] >= cn[:, None])
+                  & (cn[:, None] > 0)).sum())
+    check(err <= 1e-5, f"full_mean: device voxels vs host max err {err}")
+    log(f"nusc full_mean: the device voxelizer on frame 0 ({count} points, "
+        f"{nv} voxels, {filled} empty slots filled with their voxel's "
+        f"mean) against the host voxelizer: coordinates and counts equal, "
+        f"values max err {err:.3e}")
+
+
+def phase_nusc_mhead(device, work):
+    """Phase 14: the nuScenes multi-head PointPillars through the port's
+    entry points on a fixture tree at nuScenes density. Returns the
+    kernel launches of its requests, train() and evaluate() runs."""
+    t_phase = time.perf_counter()
+    work.mkdir()
+    root = work / "nusc"
+    t0 = time.perf_counter()
+    info_path = build_nusc_dir(root, num_frames=NUSC_FRAMES)
+    dataset = NuScenesDataset(root, info_path)
+    log(f"nusc fixture tree: {NUSC_FRAMES} frames of a key frame and 9 "
+        f"sweeps ({dataset.get_sensor_data(0)['lidar']['points'].shape[0]}"
+        f" points each) in {time.perf_counter() - t0:.3f} s")
+    ctx = _f32_ctx(MHEAD_CONFIG, device)
+    spec = ctx.parts["spec"]
+    log(f"nusc mhead: {type(ctx.parts['net']).__name__}, "
+        f"{spec.num_class} classes {ctx.parts['target_assigner'].classes}, "
+        f"{ctx.parts['anchor_cache']['anchors'].shape[0]} anchors, flat "
+        f"pillar path {ctx.flat_pp}, points capacity {ctx.points_capacity},"
+        f" {'rotated' if spec.use_rotate_nms else 'standup'} NMS")
+    launches = nusc_requests(ctx, dataset)
+    nusc_reference(ctx, dataset, device)
+
+    t0 = time.perf_counter()
+    create_groundtruth_database("NuScenesDataset", str(root),
+                                str(info_path))
+    with open(root / "kitti_dbinfos_train.pkl", "rb") as f:
+        db = {k: len(v) for k, v in pickle.load(f).items()}
+    log(f"nusc GT database: {db} objects in "
+        f"{time.perf_counter() - t0:.3f} s")
+    config = nusc_config(root, work / "mhead.config", NUSC_TRAIN_STEPS)
+    total = NUSC_TRAIN_STEPS + NUSC_RESUME_STEPS
+    fhd_step_checks(config, root, device, device_route=True,
+                    label="nusc mhead", dataset=NuScenesDataset(
+                        root, info_path))
+    train_launches = fhd_train_runs(
+        config, root, work, device, "nusc_mhead", NUSC_TRAIN_STEPS,
+        NUSC_RESUME_STEPS, base_config=MHEAD_CONFIG, frames=NUSC_FRAMES,
+        resume_config=nusc_config(root, work / "mhead_resume.config", total),
+        metric="kitti.official")
+    launches = {k: launches[k] + train_launches[k] for k in launches}
+    for kernel in PATH_KERNELS["nusc_mhead"]:
+        check(launches[kernel] > 0,
+              f"the nusc_mhead path never launched {kernel}")
+    log(f"nusc mhead: launches in the requests, train() and evaluate() "
+        f"runs: {launches}")
+    nusc_full_mean(dataset, device)
+    log(f"phase 14 (nusc_mhead): {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2645,9 +2954,11 @@ def main():
         launches["fhd_train"], proofs["fhd_proof"], root = phase_fhd_train(
             device, work)
         launches["fhd_device"] = phase_fhd_device(ctx, device, root, work)
-        launches["all_fhd"] = phase_all_fhd(device, work / "all_fhd")
+        launches["all_fhd"], proofs["all_proof"] = phase_all_fhd(
+            device, work / "all_fhd")
         launches["bf16"], results["sparse_conv_gather_gemm_bf16"] = (
             phase_bf16(ctx, device, work, pp_root, root))
+        launches["nusc_mhead"] = phase_nusc_mhead(device, work / "nusc_mhead")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -10,13 +10,23 @@ JAX package; eval readers never do.
 from functools import partial
 
 from ..configs import schema
-from ..data import kitti_dataset  # noqa: F401 - registration side effect
+from ..data import kitti_dataset, nuscenes_dataset  # noqa: F401 - registers
 from ..data.dataset import get_dataset_class
 from ..data.preprocess import prep_pointcloud
 from ..models.sparse_middle import SPARSE_MIDDLE_NAMES, plan_scales
 from . import dbsampler_builder
 
-POINTS_BUFFER = 32768  # static padded size of examples that ship points
+
+def points_capacity(input_reader_config: schema.InputReader):
+    """The rows of the padded point buffer that the reader's examples
+    ship (requests on the flat pillar path, and every point-shipping
+    example): its dataset class's ``PointsCapacity``, 32768 for KITTI
+    (also where the reader names no class, as a request's config may
+    not) and 393216 for nuScenes' 10 accumulated sweeps. The JAX
+    package's request path ships the first 32768 raw points for every
+    dataset, so a nuScenes frame loses most of its points there."""
+    name = input_reader_config.dataset.dataset_class_name or "KittiDataset"
+    return get_dataset_class(name).PointsCapacity
 
 
 def build_prep_func(input_reader_config: schema.InputReader, parts,
@@ -38,7 +48,7 @@ def build_prep_func(input_reader_config: schema.InputReader, parts,
             # the JAX package takes the option and never reads it
             raise NotImplementedError(
                 "groundtruth_points_drop_percentage > 0 is implemented in "
-                "neither package (ROADMAP, 'Still to port')")
+                "neither package (ROADMAP.md, 'Raising by design')")
         db_sampler = dbsampler_builder.build(sampler_cfg)
     model_cfg = parts["model_cfg"]
     middle_name = model_cfg.middle_feature_extractor.module_class_name
@@ -92,10 +102,10 @@ def build_prep_func(input_reader_config: schema.InputReader, parts,
 
 def build(input_reader_config: schema.InputReader, parts, training,
           device_voxelize=False):
-    """The reader's dataset (``KittiDataset``) with its bound prep
-    function.
+    """The reader's dataset (its ``dataset_class_name``: ``KittiDataset``
+    or the nuScenes family) with its bound prep function.
 
-    device_voxelize: ship the in-range points (``POINTS_BUFFER`` rows)
+    device_voxelize: ship the in-range points (``points_capacity`` rows)
     instead of the padded voxel buffer; the step voxelizes on the
     device, and a sparse middle builds its rulebooks there (no host
     planner runs: the JAX package's route without its planner). In
@@ -110,7 +120,8 @@ def build(input_reader_config: schema.InputReader, parts, training,
     assert dataset_cls.NumPointFeatures == model_cfg.num_point_features
     prep_func = build_prep_func(
         input_reader_config, parts, training,
-        emit_points=POINTS_BUFFER if device_voxelize else 0,
+        emit_points=(points_capacity(input_reader_config)
+                     if device_voxelize else 0),
         compact_targets=bool(device_voxelize) and training)
     return dataset_cls(
         info_path=dataset_cfg.kitti_info_path,

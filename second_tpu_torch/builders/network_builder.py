@@ -119,10 +119,6 @@ def build_network(config, device, compute_dtype=None):
             compute_dtype = "bfloat16"
     else:
         model_cfg = config
-    if model_cfg.network_class_name == "VoxelNetNuscenesMultiHead":
-        raise NotImplementedError(
-            "the multi-head network is not ported yet (ROADMAP.md queue 1 "
-            "item 5: it waits for its config and the nuScenes devkit)")
     voxel_generator = voxel_builder.build(model_cfg.voxel_generator)
     box_coder = box_coder_builder.build(model_cfg.box_coder)
     target_assigner = target_assigner_builder.build(
@@ -140,7 +136,15 @@ def build_network(config, device, compute_dtype=None):
 
     mid = model_cfg.middle_feature_extractor
     rpn = model_cfg.rpn
+    extra = {}
+    if model_cfg.network_class_name == "VoxelNetNuscenesMultiHead":
+        extra = dict(
+            class_names=tuple(target_assigner.classes),
+            num_anchor_per_loc_by_class=tuple(
+                int(target_assigner.num_anchors_per_location_class(c))
+                for c in target_assigner.classes))
     net = get_voxelnet_class(model_cfg.network_class_name)(
+        **extra,
         output_shape=tuple(dense_shape),
         num_class=spec.num_class,
         num_input_features=model_cfg.num_point_features,
@@ -167,6 +171,7 @@ def build_network(config, device, compute_dtype=None):
         box_code_size=spec.box_code_size,
         voxel_size=tuple(voxel_generator.voxel_size.tolist()),
         pc_range=tuple(voxel_generator.point_cloud_range.tolist()),
+        use_norm=True,
         compute_dtype=compute_dtype,
     ).to(torch.device(device)).eval()
     return {

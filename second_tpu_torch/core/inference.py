@@ -20,16 +20,22 @@ back to the other.
 
 A PillarFeatureNet encoder on a dense middle (PointPillars) runs the
 flat pillar path (``models.pp_fast``), as the JAX package serves it:
-the example ships the points inside the range, padded to
-``POINTS_BUFFER`` rows (``data.preprocess.pad_points``, as training
-ships them), instead of the voxels, and the device pillarizes them. The
-host still voxelizes once, for the anchor mask.
+the example ships the points inside the range, padded to the eval
+reader's ``points_capacity`` rows (``data.preprocess.pad_points``, as
+training ships them: 32768 for KITTI, 393216 for nuScenes' 10 sweeps),
+instead of the voxels, and the device pillarizes them. The host still
+voxelizes once, for the anchor mask. The nuScenes multi-head network
+runs this path too (its ``rpn_preds`` applies both heads).
+
+``get_inference_input_dict`` takes a KITTI info (image index and
+calibration) or a nuScenes one (its sample ``token``, no image or
+calibration) beside the points.
 """
 
 import numpy as np
 import torch
 
-from ..builders.dataset_builder import POINTS_BUFFER, build_prep_func
+from ..builders.dataset_builder import build_prep_func, points_capacity
 from ..builders.network_builder import build_network
 from ..configs import load_pipeline_config
 from ..data import merge_second_batch
@@ -77,10 +83,11 @@ class InferenceContext:
         self.device = None
         self.flat_pp = False
         self.voxelizer = None
+        self.points_capacity = None
 
     def build(self, config_path_or_config, device, device_voxelize=False):
         """device_voxelize: ship the request's in-range points
-        (``POINTS_BUFFER`` rows) and voxelize them on the device, where a
+        (``points_capacity`` rows) and voxelize them on the device, where a
         sparse middle builds its rulebooks too; False ships the host's
         voxels and, for a sparse middle, its host plan. PointPillars
         networks run the flat pillar path on points either way."""
@@ -98,9 +105,10 @@ class InferenceContext:
             .startswith("PillarFeatureNet"))
         ship_points = device_voxelize and not self.flat_pp
         reader = self.config.eval_input_reader
+        self.points_capacity = points_capacity(reader)
         self.prep_func = build_prep_func(
             reader, self.parts, training=False,
-            emit_points=POINTS_BUFFER if ship_points else 0)
+            emit_points=self.points_capacity if ship_points else 0)
         self.voxelizer = (make_voxelizer_fn(
             self.parts["voxel_generator"],
             reader.preprocess.max_number_of_voxels) if ship_points else None)
@@ -108,12 +116,13 @@ class InferenceContext:
     def get_inference_input_dict(self, info, points):
         if self.parts is None:
             raise RuntimeError("call build first")
+        # a nuScenes info names its sample by token
+        metadata = ({"token": info["token"]} if "token" in info else
+                    {"image_idx": info["image"]["image_idx"]
+                     if "image" in info else 0})
         input_dict = {
             "lidar": {"type": "lidar", "points": points},
-            "metadata": {
-                "image_idx": info["image"]["image_idx"]
-                if "image" in info else 0,
-            },
+            "metadata": metadata,
         }
         if "calib" in info:
             calib = info["calib"]
@@ -127,7 +136,7 @@ class InferenceContext:
         if self.flat_pp:
             buf, count = pad_points(
                 points, self.parts["voxel_generator"].point_cloud_range,
-                POINTS_BUFFER)
+                self.points_capacity)
             example["points"] = buf
             example["points_count"] = np.array([count], np.int32)
             for key in ("voxels", "num_points", "coordinates"):

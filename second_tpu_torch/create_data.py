@@ -6,6 +6,13 @@ reference second/create_data.py):
 It writes the info files, the reduced point clouds (the points inside
 the camera's image) and the GT database that the train reader's
 sampler reads (``gt_database/`` and ``kitti_dbinfos_train.pkl``).
+
+    python -m second_tpu_torch.create_data nuscenes_data_prep \
+        --root_path=/data/nuscenes --version=v1.0-trainval
+
+needs the nuScenes devkit for its infos; the GT database of existing
+nuScenes infos is ``data.gt_database.create_groundtruth_database(
+"NuScenesDataset", root, info_path)``.
 """
 
 from pathlib import Path
@@ -17,6 +24,7 @@ from .data.kitti_dataset import (
     create_reduced_point_cloud,
     read_imageset_file,
 )
+from .data.nuscenes_dataset import create_nuscenes_infos
 
 
 def kitti_data_prep(root_path, imageset_dir=None):
@@ -38,9 +46,21 @@ def kitti_data_prep(root_path, imageset_dir=None):
 
 
 def nuscenes_data_prep(root_path, version, max_sweeps=10):
-    raise NotImplementedError(
-        "the nuScenes dataset is not ported to second_tpu_torch yet "
-        "(ROADMAP, queue 1 item 5)")
+    """Infos and the GT database of the nuScenes tree at ``root_path``,
+    as the JAX package makes them. Its first step,
+    ``create_nuscenes_infos``, reads the tree through the nuScenes
+    devkit, so without the devkit (and ``pyquaternion``) it raises
+    ``ImportError``, naming it."""
+    try:
+        create_nuscenes_infos(root_path, version=version,
+                              max_sweeps=max_sweeps)
+    except ImportError as err:
+        raise ImportError(
+            f"nuscenes_data_prep reads the tree through the nuScenes devkit "
+            f"(packages nuscenes-devkit and pyquaternion): {err}") from err
+    name = "infos_test.pkl" if version == "v1.0-test" else "infos_train.pkl"
+    create_groundtruth_database(
+        "NuScenesDataset", root_path, str(Path(root_path) / name))
 
 
 def main():

@@ -40,6 +40,10 @@ def _to_ragged(det):
 @register_dataset
 class KittiDataset(Dataset):
     NumPointFeatures = 4
+    # rows of a frame's shipped point buffer (data.preprocess.pad_points):
+    # the reduced clouds the readers load (the points in the camera's
+    # view) hold ~15-20k points
+    PointsCapacity = 32768
 
     def __init__(self,
                  root_path,

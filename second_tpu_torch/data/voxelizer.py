@@ -52,7 +52,12 @@ class VoxelGenerator:
         self._block_factor = block_factor
         self._block_size = block_size
         self._height_threshold = height_threshold
-        self._workspace = None  # native-kernel dense index grid, lazy
+        # the native kernel's dense index grids, made when first needed:
+        # a call takes one for itself (the loader's threads voxelize
+        # with one generator while ctypes releases the GIL), so there
+        # are as many as calls that ran at once. list.pop and append
+        # are atomic, so no lock is held, in this process or a fork.
+        self._workspaces = []
 
     @property
     def voxel_size(self):
@@ -101,14 +106,17 @@ class VoxelGenerator:
         """C++ FCFS kernel (the modes above have no native version)."""
         from ..native import voxelize_native
 
-        if self._workspace is None:
-            nx, ny, nz = (int(v) for v in self._grid_size)
-            self._workspace = np.full(nz * ny * nx, -1, np.int32)
-        voxels, coors, counts, n = voxelize_native.points_to_voxel(
-            points, self._voxel_size, self._point_cloud_range,
-            self._max_num_points, max_voxels,
-            tuple(int(v) for v in self._grid_size), self._workspace)
-        return voxels, coors, counts, n
+        try:
+            workspace = self._workspaces.pop()
+        except IndexError:
+            workspace = np.full(int(np.prod(self._grid_size)), -1, np.int32)
+        try:
+            return voxelize_native.points_to_voxel(
+                points, self._voxel_size, self._point_cloud_range,
+                self._max_num_points, max_voxels,
+                tuple(int(v) for v in self._grid_size), workspace)
+        finally:
+            self._workspaces.append(workspace)
 
     def _voxelize_numpy(self, points, max_voxels):
         T = self._max_num_points

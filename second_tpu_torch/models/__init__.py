@@ -1,6 +1,13 @@
 """The port's model zoo; importing it registers every ported module."""
 
-from . import middle, rpn, sparse_middle, voxel_encoders, voxelnet  # noqa: F401
+from . import (  # noqa: F401
+    middle,
+    multi_head,
+    rpn,
+    sparse_middle,
+    voxel_encoders,
+    voxelnet,
+)
 from .registry import (  # noqa: F401
     get_middle_class,
     get_rpn_class,

@@ -78,14 +78,27 @@ class MaskedBatchNorm(nn.Module):
 
 
 class LinearBNReLU(nn.Module):
-    """A bias-free linear layer, then :class:`MaskedBatchNorm`, then ReLU,
-    on the last dimension (the JAX ``LinearBNReLU`` with ``use_norm``)."""
+    """A linear layer, then :class:`MaskedBatchNorm`, then ReLU, on the
+    last dimension (the JAX ``LinearBNReLU``): bias-free with the norm
+    (``use_norm``), biased without it, as the reference's layers are."""
 
-    def __init__(self, in_features, out_features):
+    def __init__(self, in_features, out_features, use_norm=True):
         super().__init__()
-        self.linear = nn.Linear(in_features, out_features, bias=False)
-        self.bn = MaskedBatchNorm(out_features)
+        self.linear = nn.Linear(in_features, out_features, bias=not use_norm)
+        if use_norm:
+            self.bn = MaskedBatchNorm(out_features)
 
     def forward(self, x, mask=None):
         """``mask``: bool of x's shape without the channel dimension."""
-        return torch.relu(self.bn(self.linear(x), mask=mask))
+        x = self.linear(x)
+        if hasattr(self, "bn"):
+            x = self.bn(x, mask=mask)
+        return torch.relu(x)
+
+    def affine(self):
+        """What follows the bias-free product in eval mode, as
+        y = (x @ W^T) * k + b: the batch norm's affine, or the linear
+        layer's bias."""
+        if hasattr(self, "bn"):
+            return self.bn.affine()
+        return torch.ones_like(self.linear.bias), self.linear.bias

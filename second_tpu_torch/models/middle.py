@@ -32,9 +32,9 @@ class PointPillarsScatter(nn.Module):
     pointpillars.py:420-476), through :func:`scatter_canvas`."""
 
     def __init__(self, output_shape, num_input_features=64,
-                 num_filters_down1=(), num_filters_down2=()):
+                 num_filters_down1=(), num_filters_down2=(), use_norm=True):
         # output_shape [1, nz, ny, nx, C]; the other arguments are the
-        # middles' common signature
+        # middles' common signature (a scatter has no weights to norm)
         super().__init__()
         self.ny, self.nx = int(output_shape[2]), int(output_shape[3])
 

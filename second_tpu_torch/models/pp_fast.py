@@ -16,7 +16,8 @@ It equals the module path (``voxelize`` -> the pillar encoder ->
     ``relu(BN(Linear(0)))``, so pillars of fewer than T points max with
     exactly that per-channel constant here;
   * batch norm uses its running statistics, so it is a per-channel
-    affine.
+    affine (without a norm, ``use_norm=False``, the affine is the linear
+    layer's bias).
 
 The per-pillar sums go through ``index_add_``, which adds with atomics
 on CUDA: the canvas is not bitwise equal run to run there, within ~1e-6
@@ -109,11 +110,12 @@ def flat_pfn(vfe, pts_s, coords_pt, vrank, counts, max_points_per_voxel):
 
     for layer in vfe.pfn_layers:
         lbr = layer.linear_bn_relu
-        k, b = lbr.bn.affine()
+        k, b = lbr.affine()
         y = torch.relu(torch.matmul(x, lbr.linear.weight.t()) * k + b)
         seg = _segment(torch.where(valid[:, None], y, -1e9), vr, v, -1e9,
                        "amax")
         # the module path's padded slots carry relu(BN(Linear(0)))
+        # (relu(bias) without a norm)
         seg = torch.where(part, torch.maximum(seg, torch.relu(b)), seg)
         seg = torch.where((counts > 0)[:, None], seg, 0.0)
         if not layer.last_layer:

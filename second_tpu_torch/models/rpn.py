@@ -27,22 +27,25 @@ from .registry import register_rpn
 class ConvBNReLU(nn.Module):
     """Conv (or transpose conv) + batch norm (or GroupNorm) + ReLU; the
     conv runs in ``compute_dtype`` (a torch dtype) or, where that is
-    None, in the promoted dtype of its input and weight."""
+    None, in the promoted dtype of its input and weight. Without a norm
+    (``use_norm=False``) the conv has a bias, as in JAX."""
 
     def __init__(self, cin, cout, kernel=3, stride=1, transpose=False,
-                 use_groupnorm=False, num_groups=32, compute_dtype=None):
+                 use_groupnorm=False, num_groups=32, compute_dtype=None,
+                 use_norm=True):
         super().__init__()
         self.compute_dtype = compute_dtype
         if transpose:
             self.conv = nn.ConvTranspose2d(cin, cout, kernel, stride=stride,
-                                           bias=False)
+                                           bias=not use_norm)
         else:
             self.conv = nn.Conv2d(cin, cout, kernel, stride=stride,
-                                  padding=(kernel - 1) // 2, bias=False)
-        if use_groupnorm:
+                                  padding=(kernel - 1) // 2,
+                                  bias=not use_norm)
+        if use_norm and use_groupnorm:
             # contiguous channel groups, as flax groups the last axis
             self.gn = nn.GroupNorm(num_groups, cout, eps=1e-3)
-        else:
+        elif use_norm:
             self.bn = MaskedBatchNorm(cout)
 
     def forward(self, x):
@@ -50,21 +53,27 @@ class ConvBNReLU(nn.Module):
         x = (promoted(x, w.dtype) if self.compute_dtype is None
              else x.to(self.compute_dtype))
         w = w.to(x.dtype)
+        b = self.conv.bias
+        if b is not None:
+            b = b.to(x.dtype)
         if isinstance(self.conv, nn.ConvTranspose2d):
             if x.device.type == "cpu" and x.dtype == torch.bfloat16:
                 # torch's CPU bf16 transposed conv (2.13) returns a wrong
                 # input gradient at stride 4 (tests/test_torch_bf16.py);
                 # in f32 on the bf16 values, rounded once, it computes
                 # what the bf16 op does
-                x = F.conv_transpose2d(x.float(), w.float(),
-                                       stride=self.conv.stride).to(x.dtype)
+                x = F.conv_transpose2d(
+                    x.float(), w.float(), None if b is None else b.float(),
+                    stride=self.conv.stride).to(x.dtype)
             else:
-                x = F.conv_transpose2d(x, w, stride=self.conv.stride)
+                x = F.conv_transpose2d(x, w, b, stride=self.conv.stride)
         else:
-            x = self.conv._conv_forward(x, w, None)
+            x = self.conv._conv_forward(x, w, b)
         if hasattr(self, "gn"):
             return F.relu(self.gn(promoted(x, torch.float32)))
-        return F.relu(self.bn(x, channel_dim=1))
+        if hasattr(self, "bn"):
+            return F.relu(self.bn(x, channel_dim=1))
+        return F.relu(x)
 
 
 class BasicBlock(nn.Module):
@@ -109,6 +118,7 @@ class RPNNoHeadBase(nn.Module):
     ``layer_num`` convs, then the stage's deblock. A stride below 1
     upsamples by a strided conv of 1 / stride. ``compute_dtype``: None
     (f32) or a torch dtype, the backbone's (see the module's header).
+    ``use_norm=False``: biased convs without normalisation.
     """
 
     def __init__(self, num_class=2, layer_nums=(3, 5, 5),
@@ -119,7 +129,7 @@ class RPNNoHeadBase(nn.Module):
                  encode_background_as_zeros=True,
                  use_direction_classifier=True, use_groupnorm=False,
                  num_groups=32, box_code_size=7, num_direction_bins=2,
-                 compute_dtype=None):
+                 compute_dtype=None, use_norm=True):
         super().__init__()
         if not (len(layer_strides) == len(layer_nums) == len(num_filters)):
             raise ValueError("layer_nums, layer_strides and num_filters "
@@ -141,6 +151,7 @@ class RPNNoHeadBase(nn.Module):
         self.use_groupnorm = use_groupnorm
         self.num_groups = num_groups
         self.compute_dtype = compute_dtype
+        self.use_norm = use_norm
         self.layers = nn.ModuleList()
         self._stages = []  # (the stage's modules, its deblock or None)
         cin = num_input_features
@@ -167,7 +178,7 @@ class RPNNoHeadBase(nn.Module):
         self.layers.append(ConvBNReLU(
             cin, cout, kernel, stride, transpose=transpose,
             use_groupnorm=self.use_groupnorm, num_groups=self.num_groups,
-            compute_dtype=self.compute_dtype))
+            compute_dtype=self.compute_dtype, use_norm=self.use_norm))
         return self.layers[-1]
 
     def _stage(self, cin, nf, stride, layer_num):
@@ -236,7 +247,8 @@ class RPNNoHead(RPNNoHeadBase):
 class ResNetRPN(RPNBase):
     """RPNBase with residual stages: each stage is ``max(layer_num, 1)``
     BasicBlocks, the first strided (``blocks``, the JAX module's
-    ``BasicBlock_{n}``); the deblocks stay ConvBNReLUs (``layers``).
+    ``BasicBlock_{n}``); the deblocks stay ConvBNReLUs (``layers``), the
+    only convs ``use_norm`` reaches, as in JAX.
     JAX's ResNetRPN casts nothing, whatever its compute dtype: every
     conv runs in f32 (its f32 weights promote a bf16 input)."""
 

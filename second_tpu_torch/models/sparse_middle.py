@@ -303,8 +303,10 @@ class SparseMiddleBase(nn.Module):
 
     Parameters keep the JAX names and layouts: ``subm{li}_w`` /
     ``down{li}_w`` [K, Cin, Cout] (bias-free) and ``bn{li}``, one per
-    op; they stay f32 under a ``compute_dtype`` (a torch dtype, or None
-    for f32), which casts them at use.
+    op, or without a norm (``use_norm=False``) a bias ``subm{li}_b`` /
+    ``down{li}_b`` [Cout] in place of ``bn{li}``; they stay f32 under a
+    ``compute_dtype`` (a torch dtype, or None for f32), which casts
+    them at use.
     """
 
     topology = FHD_TOPOLOGY
@@ -313,26 +315,38 @@ class SparseMiddleBase(nn.Module):
 
     def __init__(self, output_shape, num_input_features=128,
                  num_filters_down1=(64,), num_filters_down2=(64, 64),
-                 compute_dtype=None):
+                 compute_dtype=None, use_norm=True):
         super().__init__()
         self.output_shape = tuple(int(v) for v in output_shape)
         self.compute_dtype = compute_dtype
+        self.use_norm = use_norm
         cin = num_input_features
         for li, op in enumerate(self.topology):
             cout, kernel = op[1], _t3(op[2])
             k = int(np.prod(kernel))
             self.register_parameter(
                 f"{op[0]}{li}_w", nn.Parameter(torch.empty(k, cin, cout)))
-            self.add_module(f"bn{li}", MaskedBatchNorm(cout))
+            if use_norm:
+                self.add_module(f"bn{li}", MaskedBatchNorm(cout))
+            else:
+                self.register_parameter(
+                    f"{op[0]}{li}_b", nn.Parameter(torch.zeros(cout)))
             cin = cout
 
     def _weight(self, op, li):
         w = getattr(self, f"{op[0]}{li}_w")
         return w if self.compute_dtype is None else w.to(self.compute_dtype)
 
+    def _bias(self, op, li):
+        """The op's bias (``use_norm=False``), or None. JAX casts only
+        the weight, so a bias promotes a bf16 output to f32."""
+        return None if self.use_norm else getattr(self, f"{op[0]}{li}_b")
+
     def _norm_relu(self, x, li, mask, channel_dim):
         """Batch norm (statistics over the active rows ``mask`` in
-        training) and ReLU."""
+        training), where the middle has one, and ReLU."""
+        if not self.use_norm:
+            return F.relu(x)
         return F.relu(getattr(self, f"bn{li}")(
             x, mask=mask, channel_dim=channel_dim))
 
@@ -381,13 +395,13 @@ class SparseMiddleBase(nn.Module):
                     None, plan[f"plan_coords{scale_idx}"], out_shape)
                 down_slots = plan[f"plan_conv{scale_idx}"]
             for op in group:
-                w = self._weight(op, li)
+                w, b = self._weight(op, li), self._bias(op, li)
                 if op[0] == "subm":
                     grid = sparse.subm_conv(
-                        grid, plan[f"plan_subm{scale_idx}"], w)
+                        grid, plan[f"plan_subm{scale_idx}"], w, b)
                 else:
                     grid = sparse.sparse_conv_apply(
-                        grid, out_grid, down_slots, w)
+                        grid, out_grid, down_slots, w, b)
                 feats = self._norm_relu(grid.features, li, grid.valid, -1)
                 feats = torch.where(grid.valid[..., None], feats,
                                     torch.zeros_like(feats))
@@ -412,6 +426,8 @@ class SparseMiddleBase(nn.Module):
             k, cin, cout = w.shape
             w3 = w.reshape(*kernel, cin, cout).permute(4, 3, 0, 1, 2)
             out = F.conv3d(feats, w3, stride=stride, padding=pad)
+            if not self.use_norm:
+                out = out + self._bias(op, li).view(1, -1, 1, 1, 1)
             if op[0] == "down":
                 # the dilated active set: any output whose window
                 # touches an active input

@@ -7,8 +7,10 @@ the pillar family (PointPillars): :class:`PillarFeatureNet`,
 :class:`PillarFeatureNetOld`, :class:`PillarFeatureNetRadius` and
 :class:`PillarFeatureNetRadiusHeight`.
 
-Inputs use the static layout: voxels [B, V, T, F] (zero padding),
-num_points [B, V], coords [B, V, 3] zyx (-1 padding rows). The pillar
+``use_norm=False`` gives each pointwise layer a bias and no batch
+norm, as in JAX. Inputs use the static layout: voxels [B, V, T, F]
+(zero padding), num_points [B, V], coords [B, V, 3] zyx (-1 padding
+rows). The pillar
 family masks the padded T slots once, before the PFN stack, and lets
 their ``relu(BN(Linear(0)))`` join each max, as the JAX modules (and the
 reference, pointpillars.py:52-66) do; the inference fast path
@@ -30,7 +32,8 @@ class SimpleVoxel(nn.Module):
 
     def __init__(self, num_input_features=4, num_filters=(32, 128),
                  with_distance=False,
-                 voxel_size=(0.2, 0.2, 4), pc_range=(0, -40, -3, 70.4, 40, 1)):
+                 voxel_size=(0.2, 0.2, 4), pc_range=(0, -40, -3, 70.4, 40, 1),
+                 use_norm=True):
         # the other arguments are the VFE family's common signature;
         # a mean has no parameters
         super().__init__()
@@ -79,9 +82,10 @@ class VFELayer(nn.Module):
     """Pointwise Linear+BN+ReLU to out_channels / 2, with the max over
     the T slots repeated beside each slot (voxel_encoder.py:50-80)."""
 
-    def __init__(self, in_channels, out_channels):
+    def __init__(self, in_channels, out_channels, use_norm=True):
         super().__init__()
-        self.linear_bn_relu = LinearBNReLU(in_channels, out_channels // 2)
+        self.linear_bn_relu = LinearBNReLU(in_channels, out_channels // 2,
+                                           use_norm)
 
     def forward(self, x, voxel_mask):
         x = self.linear_bn_relu(
@@ -101,15 +105,15 @@ class _VoxelFeatureExtractorBase(nn.Module):
 
     def __init__(self, num_input_features=4, num_filters=(32, 128),
                  with_distance=False, voxel_size=(0.2, 0.2, 4),
-                 pc_range=(0, -40, -3, 70.4, 40, 1)):
+                 pc_range=(0, -40, -3, 70.4, 40, 1), use_norm=True):
         super().__init__()
         self.with_distance = with_distance
         cin = num_input_features + 3 + int(with_distance)
         self.vfe_layers = nn.ModuleList()
         for out in num_filters:
-            self.vfe_layers.append(VFELayer(cin, out))
+            self.vfe_layers.append(VFELayer(cin, out, use_norm))
             cin = out
-        self.linear_bn_relu = LinearBNReLU(cin, num_filters[-1])
+        self.linear_bn_relu = LinearBNReLU(cin, num_filters[-1], use_norm)
 
     def forward(self, voxels, num_points, coords):
         voxel_mask = num_points > 0
@@ -147,11 +151,12 @@ class PFNLayer(nn.Module):
     returns the max [..., 1, C], the others each slot's features with
     the max repeated beside them."""
 
-    def __init__(self, in_channels, out_channels, last_layer=False):
+    def __init__(self, in_channels, out_channels, last_layer=False,
+                 use_norm=True):
         super().__init__()
         self.last_layer = last_layer
         units = out_channels if last_layer else out_channels // 2
-        self.linear_bn_relu = LinearBNReLU(in_channels, units)
+        self.linear_bn_relu = LinearBNReLU(in_channels, units, use_norm)
 
     def forward(self, x, voxel_mask):
         # batch statistics (training) over every slot of the real voxels
@@ -176,7 +181,7 @@ class _PillarFeatureNetBase(nn.Module):
 
     def __init__(self, num_input_features=4, num_filters=(64,),
                  with_distance=False, voxel_size=(0.2, 0.2, 4),
-                 pc_range=(0, -40, -3, 70.4, 40, 1)):
+                 pc_range=(0, -40, -3, 70.4, 40, 1), use_norm=True):
         super().__init__()
         self.num_input_features = num_input_features
         self.with_distance = with_distance
@@ -188,7 +193,8 @@ class _PillarFeatureNetBase(nn.Module):
         self.pfn_layers = nn.ModuleList()
         for i, out in enumerate(nf):
             last = i == len(nf) - 1
-            self.pfn_layers.append(PFNLayer(cin, out, last_layer=last))
+            self.pfn_layers.append(PFNLayer(cin, out, last_layer=last,
+                                            use_norm=use_norm))
             cin = out
 
     def forward(self, voxels, num_points, coords):

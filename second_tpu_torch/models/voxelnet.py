@@ -119,12 +119,11 @@ class VoxelNet(nn.Module):
         """compute_dtype: None (f32) or "bfloat16", the JAX package's
         mixed precision: the sparse middle and the RPN run in bf16 (see
         their modules), the encoder, a dense middle's scatter, the heads
-        and everything after them in f32; parameters stay f32."""
+        and everything after them in f32; parameters stay f32.
+        use_norm=False: the encoder's, the middle's and the RPN's layers
+        carry biases and no normalisation (``build_network`` sets True,
+        as the JAX package's does)."""
         super().__init__()
-        if not use_norm:
-            raise NotImplementedError(
-                "use_norm=False (biased convs without normalisation) is not "
-                "ported yet (ROADMAP.md queue 1 item 5)")
         self.num_class = num_class
         self.box_code_size = box_code_size
         self.num_direction_bins = num_direction_bins
@@ -134,7 +133,8 @@ class VoxelNet(nn.Module):
         self.voxel_feature_extractor = get_vfe_class(vfe_class_name)(
             num_input_features=num_input_features,
             num_filters=tuple(vfe_num_filters), with_distance=with_distance,
-            voxel_size=tuple(voxel_size), pc_range=tuple(pc_range))
+            voxel_size=tuple(voxel_size), pc_range=tuple(pc_range),
+            use_norm=use_norm)
         middle_cls = get_middle_class(middle_class_name)
         # a dense middle's scatter is dtype-agnostic (JAX's takes the
         # field and ignores it)
@@ -144,7 +144,8 @@ class VoxelNet(nn.Module):
             output_shape=tuple(output_shape),
             num_input_features=middle_num_input_features,
             num_filters_down1=tuple(middle_num_filters_d1),
-            num_filters_down2=tuple(middle_num_filters_d2), **middle_dtype)
+            num_filters_down2=tuple(middle_num_filters_d2),
+            use_norm=use_norm, **middle_dtype)
         self.rpn = get_rpn_class(rpn_class_name)(
             num_class=num_class,
             layer_nums=tuple(rpn_layer_nums),
@@ -159,7 +160,7 @@ class VoxelNet(nn.Module):
             use_groupnorm=use_groupnorm, num_groups=num_groups,
             box_code_size=box_code_size,
             num_direction_bins=num_direction_bins,
-            compute_dtype=self.compute_dtype)
+            compute_dtype=self.compute_dtype, use_norm=use_norm)
 
     def forward(self, voxels, num_points, coords, sparse_plan=None,
                 intermediates=None):
@@ -235,6 +236,8 @@ def init_weights(net, generator):
     for name, p in net.named_parameters():
         if name.endswith("_w"):  # sparse middle [K, Cin, Cout]
             p.copy_(draw(p.shape, (p.shape[0] * p.shape[1]) ** -0.5, False))
+        elif name.endswith("_b"):  # its biases without a norm
+            p.zero_()
 
 
 def compute_loss(spec: ModelSpec, preds: Dict[str, torch.Tensor],

@@ -105,12 +105,14 @@ def sort_by_voxel(points, num_points, voxel_size, range_min, grid_size,
 
 
 def voxelize(points, num_points, voxel_size, range_min, grid_size,
-             max_voxels, max_points_per_voxel):
+             max_voxels, max_points_per_voxel, full_mean=False):
     """Voxelize a padded point buffer (arguments as :func:`sort_by_voxel`).
 
     Returns voxels [V, T, F] (zero padding), coords [V, 3] int32 zyx (-1
-    padding), num_per_voxel [V] int32 and num_voxels (0-dim int32). The
-    JAX function's ``full_mean`` option is not ported.
+    padding), num_per_voxel [V] int32 and num_voxels (0-dim int32).
+    full_mean: the empty slots of each voxel hold the mean of its points
+    (the generator's ``full_empty_part_with_mean``); empty voxels stay
+    zero.
     """
     pts_s, _, vr, slot, coords, counts, num_voxels = sort_by_voxel(
         points, num_points, voxel_size, range_min, grid_size, max_voxels,
@@ -121,4 +123,11 @@ def voxelize(points, num_points, voxel_size, range_min, grid_size,
     # the rows not written all go to (V, 0), with zeros
     voxels[vr.long(), torch.where(ok, slot, 0)] = torch.where(
         ok[:, None], pts_s, 0.0)
-    return voxels[:-1], coords, counts, num_voxels
+    voxels = voxels[:-1]
+    if full_mean:
+        n = counts[:, None, None]
+        means = voxels.sum(1, keepdim=True) / n.clamp(min=1).to(voxels.dtype)
+        filled = torch.arange(max_points_per_voxel,
+                              device=points.device)[None, :, None] < n
+        voxels = torch.where(filled | (n == 0), voxels, means)
+    return voxels, coords, counts, num_voxels

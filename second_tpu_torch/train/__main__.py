@@ -21,9 +21,15 @@ the stages' utilisation (``sparse_util_max``, with a warning when a
 stage dropped voxels), from the host plan's counts or the step's device
 counts, read at display steps. A training reader that names a
 GT-database sampler trains with it. These raise
-``NotImplementedError`` (ROADMAP "Still to port"): ``use_banded``,
-``quantize_points``, ``pretrained_*``, ``freeze_*``, ``profile_steps``
-> 0 and the optimizer's ``use_moving_average``.
+``NotImplementedError`` (ROADMAP.md "Still to port" and "Raising by
+design"): ``use_banded``, ``quantize_points``, ``pretrained_*``,
+``freeze_*``, ``profile_steps`` > 0 and the optimizer's
+``use_moving_average``.
+
+A nuScenes reader (``NuScenesDataset`` and its variants) evaluates
+through the dataset's ``evaluation``: the official nuScenes metrics
+where the devkit is installed, else the kitti-style AP of its classes
+("kitti.official"), as in the JAX package.
 
 ``train_config.enable_mixed_precision`` runs the network in bf16
 (``build_network``): PointPillars trains so, its parameters, gradients,
@@ -68,8 +74,9 @@ def _unported(**options):
     for name, value in options.items():
         if value:
             raise NotImplementedError(
-                f"{name}={value!r} is not ported to second_tpu_torch yet "
-                f"(ROADMAP, 'Still to port')")
+                f"{name}={value!r} is not ported to second_tpu_torch "
+                f"(ROADMAP.md: the training options are 'Still to port'; "
+                f"use_banded and quantize_points are 'Raising by design')")
 
 
 def _upload(host, device):
@@ -156,11 +163,12 @@ def train(config_path,
     """Train a detector with the given pipeline config.
 
     device_voxelize "auto" ships, for dense middles (the PointPillars
-    family), each frame's in-range points (``POINTS_BUFFER`` rows) and
-    compact targets: the step voxelizes on the device
-    (``make_voxelizer_fn``) and rebuilds the dense targets there, and
-    the eval runs the flat pillar path; for sparse middles (car.fhd) the
-    host voxels and rulebooks, uploaded like the rest (pinned,
+    family), each frame's in-range points (the reader's
+    ``dataset_builder.points_capacity`` rows) and compact targets: the
+    step voxelizes on the device (``make_voxelizer_fn``) and rebuilds
+    the dense targets there, and the eval runs the flat pillar path; for
+    sparse middles (car.fhd) the host voxels and rulebooks, uploaded
+    like the rest (pinned,
     non-blocking, one thread ahead). True ships points for sparse
     middles as well (the JAX package's route without its planner): the
     step voxelizes and builds the rulebooks on the device. False ships

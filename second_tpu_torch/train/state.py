@@ -19,10 +19,12 @@ def make_voxelizer_fn(voxel_generator, max_voxels):
     point batch ("points" [B, N, F] + "points_count" [B, 1]) to
     (voxels [B, V, T, F], num_points [B, V], coordinates [B, V, 3]),
     frame by frame through ``ops.voxelize.voxelize`` (the twin of the
-    host C++ voxelizer), with no host sync."""
-    if voxel_generator._full_mean:
-        raise NotImplementedError(
-            "the device voxelizer's full_mean option is not ported")
+    host C++ voxelizer), with no host sync. The generator's
+    ``full_empty_part_with_mean`` (its ``_full_mean``) fills each
+    voxel's empty slots with its mean, as the host voxelizer does; the
+    JAX package's function reads a ``full_mean`` attribute the generator
+    does not have, and never fills them (``ROADMAP.md`` section 3)."""
+    full_mean = bool(voxel_generator._full_mean)
     voxel_size = tuple(float(v) for v in voxel_generator.voxel_size)
     range_min = tuple(
         float(v) for v in voxel_generator.point_cloud_range[:3])
@@ -31,7 +33,7 @@ def make_voxelizer_fn(voxel_generator, max_voxels):
 
     def fn(points, points_count):
         frames = [voxelize(p, c[0], voxel_size, range_min, grid,
-                           int(max_voxels), t)
+                           int(max_voxels), t, full_mean)
                   for p, c in zip(points, points_count)]
         voxels, coords, counts, _ = zip(*frames)
         return torch.stack(voxels), torch.stack(counts), torch.stack(coords)

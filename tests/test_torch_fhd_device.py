@@ -48,10 +48,8 @@ from second_tpu.train.state import make_train_step as jmake_train_step
 from second_tpu.train.state import make_voxelizer_fn as jmake_voxelizer_fn
 
 from second_tpu_torch.builders import network_builder as tnb
-from second_tpu_torch.builders.dataset_builder import (
-    POINTS_BUFFER,
-    build_prep_func,
-)
+from second_tpu_torch.builders.dataset_builder import build_prep_func
+from second_tpu_torch.data.kitti_dataset import KittiDataset
 from second_tpu_torch.configs import loads_pipeline_config as tloads
 from second_tpu_torch.core.inference import InferenceContext, example_to_device
 from second_tpu_torch.data import kitti_dataset as tkd
@@ -86,6 +84,9 @@ from test_torch_train import (
     train_input,
     train_variables,
 )
+
+# the rows a KITTI frame's point buffer holds (the dataset's capacity)
+POINTS_BUFFER = KittiDataset.PointsCapacity
 
 METRICS = ("loss", "cls_loss", "loc_loss", "cls_pos_loss", "cls_neg_loss",
            "dir_loss")

@@ -17,7 +17,11 @@ config with its GT-database sampler, host rulebooks, rotated NMS in the
 eval), one request of all.fhd (four classes) cut to a small width
 with multi-class NMS, one request each of the small car.fhd and
 PointPillars slices under mixed precision (bf16: K1-bf16's plain
-version, the bf16 RPN), and checks that none of the refused modules got
+version, the bf16 RPN), one request of the nuScenes multi-head
+PointPillars cut to a small width (``test_torch_mhead.reduced_text``)
+on a frame of a nuScenes-format fixture tree (``tools/nusc_fixture.py``;
+the nuScenes dataset, the flat pillar path through both heads) and the
+tree's GT database, and checks that none of the refused modules got
 loaded.
 """
 
@@ -29,6 +33,7 @@ import sys
 import numpy as np
 
 from test_torch_fhd_train import _fhd_config
+from test_torch_mhead import reduced_text as mhead_text
 from test_torch_multiclass import frame_points, reduced_text
 from test_torch_pointpillars import SMALL_PP_CONFIG, small_pp_points
 from test_torch_slice import SMALL_FHD_CONFIG, small_fhd_points
@@ -66,8 +71,12 @@ from second_tpu_torch.ops import box_ops_torch, losses  # noqa: F401
 from second_tpu_torch.ops import cuda_sparse_conv_bf16  # noqa: F401
 from second_tpu_torch.ops import voxelize  # noqa: F401
 from second_tpu_torch.data import kitti_dataset, loader, prefetch  # noqa
+from second_tpu_torch.data import nusc_eval, nuscenes_dataset  # noqa: F401
+from second_tpu_torch.data.gt_database import create_groundtruth_database
+from second_tpu_torch.models import multi_head  # noqa: F401
 from second_tpu_torch.native import eval_native  # noqa: F401
-from second_tpu_torch.tools import kitti_fixture, overfit_ap  # noqa: F401
+from second_tpu_torch.tools import kitti_fixture, nusc_fixture  # noqa
+from second_tpu_torch.tools import overfit_ap  # noqa: F401
 from second_tpu_torch.train import checkpoint, optimizer  # noqa: F401
 from second_tpu_torch.train.__main__ import evaluate, train
 from second_tpu_torch.train.state import make_train_step, make_voxelizer_fn
@@ -75,7 +84,8 @@ from second_tpu_torch.utils import eval as kitti_eval  # noqa: F401
 from second_tpu_torch.utils import fire_lite, log_tool, timer  # noqa: F401
 
 (config_path, points_path, boxes_path, pp_config_path, pp_points_path,
- work, fhd_config_path, all_config_path, all_points_path) = sys.argv[1:10]
+ work, fhd_config_path, all_config_path, all_points_path,
+ mhead_config_path) = sys.argv[1:11]
 with open(config_path) as f:
     cfg = loads_pipeline_config(f.read())
 points, boxes = np.load(points_path), np.load(boxes_path)
@@ -169,6 +179,21 @@ for name, base in (("fhd", cfg), ("pp", pp_cfg)):
     mdets = mctx.inference(mctx.get_inference_input_dict({}, pts))[0]
     bf16[name] = (str(mctx.parts["net"].compute_dtype),
                   bool(np.isfinite(mdets["box3d_lidar"]).all()))
+# the nuScenes multi-head network on a fixture frame, and its GT database
+nusc_root = Path(work) / "nusc"
+info_path = nusc_fixture.build_nusc_dir(
+    nusc_root, num_frames=1, sweeps=2, points_per_sweep=1500,
+    points_per_object=30, half_range=9.0, max_radius=16.0)
+sensor = nuscenes_dataset.NuScenesDataset(
+    nusc_root, info_path).get_sensor_data(0)
+mhead = InferenceContext()
+with open(mhead_config_path) as f:
+    mhead.build(loads_pipeline_config(f.read()), device="cpu")
+mhead.init_random(0)
+mhead_dets = mhead.inference(mhead.get_inference_input_dict(
+    sensor["metadata"], sensor["lidar"]["points"]))[0]
+create_groundtruth_database("NuScenesDataset", str(nusc_root),
+                            str(info_path))
 loaded = sorted({m.split(".")[0] for m in sys.modules} & set(BLOCKED))
 print(json.dumps({"loaded": loaded, "n_frames": len(dets),
                   "box_shape": list(dets[0]["box3d_lidar"].shape),
@@ -192,7 +217,13 @@ print(json.dumps({"loaded": loaded, "n_frames": len(dets),
                       np.isfinite(all_dets["box3d_lidar"]).all()),
                   "all_fhd_labels": sorted(
                       set(all_dets["label_preds"].tolist())),
-                  "bf16": bf16}))
+                  "bf16": bf16,
+                  "mhead_net": type(mhead.parts["net"]).__name__,
+                  "mhead_flat": mhead.flat_pp,
+                  "mhead_box_shape": list(mhead_dets["box3d_lidar"].shape),
+                  "mhead_finite": bool(
+                      np.isfinite(mhead_dets["box3d_lidar"]).all()),
+                  "mhead_token": mhead_dets["metadata"]["token"]}))
 """
 
 
@@ -231,12 +262,17 @@ def test_slice_runs_without_jax(tmp_path):
     all_config_path.write_text(reduced_text(multiclass_nms=True))
     all_points_path = tmp_path / "all_points.npy"
     np.save(all_points_path, frame_points(0))
-    env = dict(os.environ, PYTHONPATH=REPO)
+    mhead_config_path = tmp_path / "mhead.config"
+    mhead_config_path.write_text(mhead_text())
+    # one intra-op thread: the tier-1 run puts 6 workers on the cores,
+    # and torch's own threads in this process then oversubscribe them
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(config_path), str(points_path),
          str(boxes_path), str(pp_config_path), str(pp_points_path),
          str(tmp_path), str(_fhd_train_config(tmp_path)),
-         str(all_config_path), str(all_points_path)],
+         str(all_config_path), str(all_points_path),
+         str(mhead_config_path)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -258,6 +294,12 @@ def test_slice_runs_without_jax(tmp_path):
     assert set(result["all_fhd_labels"]) <= {0, 1, 2, 3}
     assert result["bf16"] == {"fhd": ["torch.bfloat16", True],
                               "pp": ["torch.bfloat16", True]}
+    assert result["mhead_net"] == "VoxelNetNuscenesMultiHead"
+    assert result["mhead_flat"] and result["mhead_finite"]
+    assert result["mhead_box_shape"][0] > 0
+    assert result["mhead_box_shape"][1:] == [7]
+    assert result["mhead_token"] == "sample0000"
+    assert (tmp_path / "nusc" / "kitti_dbinfos_train.pkl").is_file()
     log = (tmp_path / "model" / "log.txt").read_text()
     assert "Evaluation official" in log
     assert (tmp_path / "model" / "voxelnet-1.ckpt").is_file()

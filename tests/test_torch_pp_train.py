@@ -42,10 +42,8 @@ from second_tpu.train.state import make_train_step as jmake_train_step
 from second_tpu.train.state import make_voxelizer_fn as jmake_voxelizer
 
 from second_tpu_torch.builders import network_builder as tnb
-from second_tpu_torch.builders.dataset_builder import (
-    POINTS_BUFFER,
-    build_prep_func,
-)
+from second_tpu_torch.builders.dataset_builder import build_prep_func
+from second_tpu_torch.data.kitti_dataset import KittiDataset
 from second_tpu_torch.configs import loads_pipeline_config as tloads
 from second_tpu_torch.core.inference import example_to_device
 from second_tpu_torch.data import merge_second_batch
@@ -62,6 +60,9 @@ from second_tpu_torch.utils.from_flax import from_flax
 from test_torch_pointpillars import SMALL_PP_CONFIG, small_pp_points
 from test_torch_slice import random_variables
 from test_torch_train import _sync_to_jax, train_variables
+
+# the rows a KITTI frame's point buffer holds (the dataset's capacity)
+POINTS_BUFFER = KittiDataset.PointsCapacity
 
 MAX_VOXELS = 2000
 # as in test_torch_train: a gradient whose JAX fp32 value lies further

@@ -306,30 +306,44 @@ def test_ghm_losses_match_jax(case):
 @pytest.mark.parametrize("what", ["mixed_precision", "multi_head",
                                   "use_norm"])
 def test_still_unported_raise_naming_the_roadmap(what):
-    """The multi-head network and use_norm=False raise
-    NotImplementedError pointing at ROADMAP.md; mixed precision builds
-    in bf16 now, and what stays outside the port of it, a sparse
-    middle's bf16 train step, raises so. None falls back."""
+    """Mixed precision builds in bf16, and what stays outside the port of
+    it, a sparse middle's bf16 train step, raises NotImplementedError
+    pointing at ROADMAP.md. The multi-head network and use_norm=False
+    are ported now: the network builds from its 10-class config and
+    refuses any other class count (ValueError), and use_norm=False
+    builds biased layers without norms. None falls back."""
     from second_tpu_torch.builders.network_builder import build_network
-    from second_tpu_torch.configs import loads_pipeline_config
+    from second_tpu_torch.configs import (
+        load_pipeline_config,
+        loads_pipeline_config,
+    )
     from second_tpu_torch.train import optimizer as topt
     from second_tpu_torch.train.state import make_train_step
 
     from test_torch_slice import SMALL_FHD_CONFIG
 
     cfg = loads_pipeline_config(SMALL_FHD_CONFIG)
-    if what == "mixed_precision":
-        cfg.train_config.enable_mixed_precision = True
-        parts = build_network(cfg, "cpu")
-        assert parts["net"].compute_dtype == torch.bfloat16
-        opt, lr_fn, mom_fn = topt.build(cfg.train_config.optimizer, 10,
-                                        list(parts["net"].parameters()))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if what == "use_norm":
-            tvoxelnet.VoxelNet(output_shape=(1, 40, 64, 64, 16),
-                               use_norm=False)
-        elif what == "mixed_precision":
-            make_train_step(parts["net"], parts["spec"], opt, lr_fn, mom_fn)
-        else:
-            cfg.model.second.network_class_name = "VoxelNetNuscenesMultiHead"
+    if what == "use_norm":
+        net = tvoxelnet.VoxelNet(output_shape=(1, 40, 64, 64, 16),
+                                 middle_num_input_features=4,
+                                 rpn_num_input_features=128, use_norm=False)
+        names = [n for n, _ in net.named_parameters()]
+        assert "middle_feature_extractor.subm0_b" in names
+        assert "rpn.layers.0.conv.bias" in names
+        assert not any(".bn" in n or n.startswith("bn") for n in names)
+        return
+    if what == "multi_head":
+        parts = build_network(load_pipeline_config(
+            "configs/nuscenes/all.pp.mhead.config"), "cpu")
+        assert type(parts["net"]).__name__ == "VoxelNetNuscenesMultiHead"
+        cfg.model.second.network_class_name = "VoxelNetNuscenesMultiHead"
+        with pytest.raises(ValueError, match="10 classes"):
             build_network(cfg, "cpu")
+        return
+    cfg.train_config.enable_mixed_precision = True
+    parts = build_network(cfg, "cpu")
+    assert parts["net"].compute_dtype == torch.bfloat16
+    opt, lr_fn, mom_fn = topt.build(cfg.train_config.optimizer, 10,
+                                    list(parts["net"].parameters()))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_train_step(parts["net"], parts["spec"], opt, lr_fn, mom_fn)
