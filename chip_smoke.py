@@ -138,8 +138,8 @@ trees of phases 9 and 10 have one. Phases, each printed as it runs:
      bev_box_decode, GHM-C and GHM-R; last, all.fhd's learning proof
      (``tools/overfit_ap.py --model all``, 1000 steps on 24 fixture
      frames of two objects of each class): every class's bev and 3d
-     AP at ``overfit_ap.ALL_FLOOR`` or above (IoU 0.7 for Car and Van,
-     0.5 for Pedestrian and Cyclist);
+     AP at ``overfit_ap.ALL_FLOOR`` (55) or above (IoU 0.7 for Car and
+     Van, 0.5 for Pedestrian and Cyclist);
  13. mixed precision (``bf16``): K1-bf16 against its plain version on
      phase 2's 10 convs (max error, also in bf16 ulps; two calls bitwise
      equal; wrapper, device-only and plain ms; its bound); then, counted
@@ -372,7 +372,7 @@ ALL_TRAIN_STEPS = 6
 ZOO_REL_TOL = 1e-4
 # all.fhd's learning proof (the last step of phase 12:
 # tools/overfit_ap.py --model all): each class's bev and 3d AP at
-# overfit_ap.ALL_FLOOR or above
+# overfit_ap.ALL_FLOOR (55, the floor of the other two proofs) or above
 ALL_PROOF_STEPS = 1000
 # the nuScenes multi-head PointPillars (phase 14): a fixture tree of
 # NUSC_FRAMES frames at nuScenes density (tools/nusc_fixture.py: a key

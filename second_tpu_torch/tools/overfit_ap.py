@@ -74,8 +74,10 @@ SCENES = {
     "all": (24, dict(classes={"Car": 2, "Cyclist": 2, "Pedestrian": 2,
                               "Van": 2})),
 }
-# the floor of every class's bev and 3d AP in the all.fhd proof
-ALL_FLOOR = 30.0
+# the floor of every class's bev and 3d AP in the all.fhd proof: the
+# PointPillars and car.fhd proofs' floor; a class that learned ranks
+# most of its 48 objects (each class read 71.97-90.91 on the H100)
+ALL_FLOOR = 55.0
 
 
 def overfit_config(root, steps, model="pp"):

@@ -78,6 +78,7 @@ from second_tpu_torch.core.inference import (
 from second_tpu_torch.models import sparse_resnet as tresnet
 from second_tpu_torch.models.layers import MaskedBatchNorm
 from second_tpu_torch.models.registry import get_rpn_class as tget_rpn
+from second_tpu_torch.ops import cuda_sparse_conv_bf16 as k1b
 from second_tpu_torch.ops import sparse as tsparse
 from second_tpu_torch.ops.cuda_sparse_conv import gather_gemm_plain
 from second_tpu_torch.train import optimizer as topt
@@ -232,6 +233,145 @@ def test_sparse_convs_promote_as_jax():
         gather_gemm_plain(tgrid.features, torch.zeros(1, 256, 27,
                                                       dtype=torch.int32),
                           torch.from_numpy(w))
+
+
+# K1-bf16's host-side arithmetic (csrc/sparse_conv_bf16.cu): the weight
+# arrangement its bulk copies read, its shared memory, and where its
+# producers put each gathered row against where its wgmma descriptors
+# read (K-major core matrices: leading byte offset 128, stride byte
+# offset Cin_p * 16, a k16 slice 256 bytes on)
+
+K1B_WIDTHS = [(4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64),
+              (3, 8), (6, 4), (40, 32), (64, 8)]
+
+
+@pytest.mark.parametrize("cin,cout", K1B_WIDTHS)
+def test_k1_bf16_weight_arrangement_round_trips(cin, cout):
+    """``arrange_weight`` back to [K, Cin, Cout] is the weight; the
+    padding is zero; each element sits where the CUDA source's
+    ``arrange_weight_kernel`` index arithmetic puts it."""
+    k = 27
+    w = torch.from_numpy(np.random.RandomState(cin + cout).randn(
+        k, cin, cout).astype(np.float32)).bfloat16()
+    cin_p, cout_p = k1b.padded_widths(cin, cout)
+    warr = k1b.arrange_weight(w, cin_p, cout_p)
+    assert warr.shape == (k, cout_p // 8, cin_p // 8, 8, 8)
+    assert torch.equal(k1b.unarrange_weight(warr, cin, cout), w)
+    flat = warr.reshape(-1).float().numpy()
+    i = np.arange(flat.size)
+    per_k = cin_p * cout_p
+    kk, rem = i // per_k, i % per_k
+    blk, e = rem >> 6, rem & 63
+    n = (blk // (cin_p // 8)) * 8 + (e >> 3)
+    c = (blk % (cin_p // 8)) * 8 + (e & 7)
+    inside = (c < cin) & (n < cout)
+    wf = w.float().numpy()
+    assert np.array_equal(flat[inside], wf[kk[inside], c[inside], n[inside]])
+    assert not flat[~inside].any()
+
+
+def test_k1_bf16_shared_memory_fits_every_shape():
+    """A block's shared memory stays within the 227 KB a block can opt
+    in to for every padded width, K <= 64 and ring depth in [4, 8]; the
+    ring takes 4-8 stages of its target size."""
+    limit = 227 * 1024
+    for cin_p in (16, 32, 64):
+        for cout_p in (8, 16, 32, 64):
+            stages = k1b.stages_for(cin_p, cout_p)
+            assert k1b.MIN_STAGES <= stages <= k1b.MAX_STAGES
+            stage = k1b.TILE_ROWS * cin_p * 2 + cin_p * cout_p * 2
+            assert (stages * stage <= k1b.RING_BYTES
+                    or stages == k1b.MIN_STAGES)
+            for k in range(1, 65):
+                for s in range(k1b.MIN_STAGES, k1b.MAX_STAGES + 1):
+                    assert k1b.smem_bytes(k, cin_p, cout_p, s) <= limit
+    # car.fhd's widest conv: 4 stages of 64 rows x 128 bytes and an 8 KB
+    # W[k], the slots of 27 offsets x 65 words
+    assert k1b.TILE_ROWS == 64
+    assert k1b.smem_bytes(27, 64, 64) == 256 + 7040 + 4 * 16384
+
+
+def _a_chunk(cin, feat_offset):
+    """The widest copy (bf16 elements) ``launch`` picks."""
+    a = 8
+    while a > 1 and (cin % a or (2 * feat_offset) % (2 * a)):
+        a //= 2
+    return a
+
+
+def _produce_stage(feat, slot_k, cin, cin_p, a_chunk, producers=128):
+    """A stage's A bytes as the CUDA producers write them: every producer
+    thread's copy steps (the compile-time path for full 16-byte rows,
+    else the generic one), misses zero-filled, Cin's padding zero."""
+    sbo = cin_p * 16
+    tm = k1b.TILE_ROWS
+    stage = np.zeros(tm * cin_p * 2, np.uint8)
+    rows = feat.view(np.uint8).reshape(feat.shape[0], -1)
+    step = producers // 8
+    cpr = cin // a_chunk
+    for pt in range(producers):
+        rsub = pt & 7
+        for p in range(pt >> 3, tm // 8 * cpr, step):
+            rg, c = p // cpr, (p % cpr) * a_chunk
+            row = slot_k[rg * 8 + rsub]
+            dst = rg * sbo + (c >> 3) * 128 + rsub * 16 + (c & 7) * 2
+            n = 2 * a_chunk
+            stage[dst:dst + n] = rows[row, 2 * c:2 * c + n] if row >= 0 else 0
+    return stage
+
+
+def _descriptor_read(buf, start, n_rows, sbo):
+    """The [n_rows, 16] bf16 slice a K-major, unswizzled wgmma
+    descriptor at byte ``start`` reads: element (r, c) at
+    (r // 8) * sbo + (c // 8) * 128 + (r % 8) * 16 + (c % 8) * 2."""
+    r, c = np.meshgrid(np.arange(n_rows), np.arange(16), indexing="ij")
+    at = start + (r // 8) * sbo + (c // 8) * 128 + (r % 8) * 16 + (c % 8) * 2
+    lo, hi = buf[at].astype(np.uint16), buf[at + 1].astype(np.uint16)
+    return lo | (hi << 8)
+
+
+@pytest.mark.parametrize("cin,cout,offset", [
+    (4, 16, 0), (16, 32, 0), (32, 32, 0), (64, 64, 0), (3, 8, 0),
+    (6, 4, 0), (40, 32, 0), (16, 16, 1)])
+def test_k1_bf16_stage_layout_matches_its_descriptors(cin, cout, offset):
+    """What the producers write into a stage, read back through each
+    consumer warpgroup's A descriptors (its 64 rows, 8 row groups in) of
+    each k16 slice, is the offset's gathered rows (zero for misses and in
+    Cin's padding); ``arrange_weight``'s bytes read through the B
+    descriptors are W[k]. So each wgmma multiplies the gathered rows by
+    W[k]."""
+    rng = np.random.RandomState(cin * 7 + cout)
+    vin, k, tm = 300, 27, k1b.TILE_ROWS
+    feat = rng.randn(vin, cin).astype(np.float32)
+    feat16 = torch.from_numpy(feat).bfloat16()
+    bits = feat16.view(torch.int16).numpy().view(np.uint16)
+    slot_k = rng.randint(-1, vin, tm)
+    slot_k[rng.rand(tm) < 0.3] = -1
+    cin_p, cout_p = k1b.padded_widths(cin, cout)
+    a_chunk = _a_chunk(cin, offset)
+    stage = _produce_stage(bits, slot_k, cin, cin_p, a_chunk)
+    want = np.zeros((tm, cin_p), np.uint16)
+    want[slot_k >= 0, :cin] = bits[slot_k[slot_k >= 0]]
+    sbo = cin_p * 16
+    got = np.concatenate([
+        np.concatenate([_descriptor_read(stage, wg * 8 * sbo + 256 * j, 64,
+                                         sbo)
+                        for j in range(cin_p // 16)], 1)
+        for wg in range(tm // 64)], 0)
+    assert np.array_equal(got, want)
+
+    w = torch.from_numpy(rng.randn(k, cin, cout).astype(np.float32))
+    warr = k1b.arrange_weight(w.bfloat16(), cin_p, cout_p)
+    wbits = warr.view(torch.int16).numpy().view(np.uint16)
+    for kk in (0, k - 1):
+        buf = wbits[kk].reshape(-1).view(np.uint8)
+        b_t = np.concatenate([_descriptor_read(buf, 256 * j, cout_p,
+                                               cin_p * 16)
+                              for j in range(cin_p // 16)], 1)
+        ref = np.zeros((cout_p, cin_p), np.uint16)
+        ref[:cout, :cin] = w.bfloat16()[kk].t().contiguous().view(
+            torch.int16).numpy().view(np.uint16)
+        assert np.array_equal(b_t, ref)
 
 
 # ---------------------------------------------- (b) MaskedBatchNorm in bf16
@@ -552,6 +692,43 @@ def test_pointpillars_bf16_inference_matches_jax():
     jdets = jctx.inference(jctx.get_inference_input_dict({}, points))[0]
     tdets = tctx.inference(example)[0]
     _detections_match(tdets, jdets, "PointPillars")
+
+
+# The bf16 error against f32 of PointPillars' flat path, in the port
+# against the JAX package's own on the same weights and frames (the
+# measurement of tests/pp_bf16_margin.py at the reduced width). Both
+# round at the same places: each RPN conv once to bf16 from f32 sums,
+# batch norms in f32 rounded to bf16, the heads in f32. The f32 sums
+# inside each conv run in another order in oneDNN and XLA, so a value
+# near a bf16 rounding boundary rounds the other way in one package and
+# such flips compound through the RPN's 16 layers: on the published
+# width's frames 0-3 the port's error is 0.95-1.36 of JAX's
+# (tests/pp_bf16_margin.py; PERF.md section 6), at this width up to
+# 1.32. PP_MARGIN_RATIO bounds that; a cast in the wrong place takes the
+# port past it (the heads in bf16: 1.58x on frame 8's box preds; batch
+# norm's arithmetic in bf16: 1.55x on frame 7's).
+PP_MARGIN_RATIO = 1.5
+
+
+def test_pointpillars_bf16_error_matches_jax_error():
+    """The port's bf16-vs-f32 error of each pred on two frames is at most
+    ``PP_MARGIN_RATIO`` times the JAX package's on the same inputs (one
+    torch thread: the parallel CPU kernels would oversubscribe the
+    tier-1 run's workers)."""
+    from pp_bf16_margin import PREDS, margins
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rows = margins(SMALL_PP_CONFIG, [small_pp_points(s, boundary=False)
+                                         for s in (7, 8)])
+    finally:
+        torch.set_num_threads(threads)
+    for i, row in enumerate(rows):
+        for k in PREDS:
+            e = row[k]
+            assert 0 < e["jax"] < PREDS_TOL, (i, k, e)
+            assert e["port"] <= PP_MARGIN_RATIO * e["jax"], (i, k, e)
 
 
 def _l2(a, b):

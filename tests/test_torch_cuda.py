@@ -127,24 +127,88 @@ def test_k1_cuda_car_fhd_widths(cuda_device, cin, cout, use_bias):
         assert torch.equal(pad, torch.zeros_like(pad))
 
 
+def _bf16_slots(g, pattern, b, vin, k):
+    """(slots [b, vout, k], vout) of one K1-bf16 card case; a miss is
+    written as ``vin`` unless the pattern says otherwise.
+
+    * ``half``: ~40% hits, the second half of the rows missing at every
+      offset (capacity padding), Vout off the 64-row tile;
+    * ``tail``: ~40% hits in every tile but the first (all misses), and
+      a last tile of 37 rows;
+    * ``tiles``: tiles where every row misses beside tiles where every
+      slot hits, the last tile partial;
+    * ``single``: row o hits at offset (7 o) % k alone;
+    * ``minus1``: ~40% hits, misses written as -1, as ``vin`` and as
+      ``vin + 3``, rows 1000-1199 missing at every offset as -1 and rows
+      2000-2099 as ``vin + 3``;
+    * ``batches``: batch 0 ~90% hits in its first half, batch 1 ~10%
+      hits everywhere but in tiles 3-5.
+    """
+    if pattern == "half":
+        vout = 6001
+        slots = _rulebook(g, b, vin, vout, k, 0.4)
+        slots[:, vout // 2:] = vin
+    elif pattern == "tail":
+        vout = 64 * 40 + 37
+        slots = _rulebook(g, b, vin, vout, k, 0.4)
+        slots[:, :64] = vin
+    elif pattern == "tiles":
+        vout = 64 * 9 + 20
+        slots = torch.randint(0, vin, (b, vout, k), generator=g,
+                              dtype=torch.int32)
+        for t in range(0, vout, 128):
+            slots[:, t:t + 64] = vin
+    elif pattern == "single":
+        vout = 64 * 20 + 5
+        slots = torch.full((b, vout, k), vin, dtype=torch.int32)
+        o = torch.arange(vout)
+        slots[:, o, (7 * o) % k] = torch.randint(
+            0, vin, (b, vout), generator=g, dtype=torch.int32)
+    elif pattern == "minus1":
+        vout = 3001
+        slots = _rulebook(g, b, vin, vout, k, 0.4)
+        miss = slots == vin
+        pick = torch.randint(0, 3, slots.shape, generator=g)
+        slots[miss & (pick == 0)] = -1
+        slots[miss & (pick == 2)] = vin + 3
+        slots[:, 1000:1200] = -1
+        slots[:, 2000:2100] = vin + 3
+    elif pattern == "batches":
+        vout = 4000
+        slots = torch.cat([_rulebook(g, 1, vin, vout, k, 0.9),
+                           _rulebook(g, 1, vin, vout, k, 0.1)])
+        slots[0, vout // 2:] = vin
+        slots[1, 3 * 64:6 * 64] = vin
+    else:
+        raise ValueError(pattern)
+    return slots, vout
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout,k,offset", [
-    (4, 16, 27, 0), (16, 16, 27, 0), (16, 32, 27, 0), (32, 32, 27, 0),
-    (32, 64, 27, 0), (64, 64, 27, 0),  # car.fhd's forwards
-    (64, 64, 3, 0),                    # the dense tail's (3, 1, 1) kernel
-    (3, 8, 27, 0), (6, 4, 27, 0),      # 2- and 4-byte row copies
-    (4, 16, 27, 1),                    # features 2 bytes off alignment
-    (64, 64, 64, 0)])                  # K at its limit
-def test_k1_bf16_cuda_matches_plain(cuda_device, cin, cout, k, offset):
-    """K1-bf16 against the plain version in bf16 (f32 sums rounded once),
-    with the second half of the rows missing at every offset: those rows
+@pytest.mark.parametrize("cin,cout,k,offset,pattern", [
+    (4, 16, 27, 0, "half"), (16, 16, 27, 0, "half"),
+    (16, 32, 27, 0, "half"), (32, 32, 27, 0, "half"),
+    (32, 64, 27, 0, "half"), (64, 64, 27, 0, "half"),  # car.fhd's forwards
+    (64, 64, 3, 0, "half"),            # the dense tail's (3, 1, 1) kernel
+    (3, 8, 27, 0, "half"), (6, 4, 27, 0, "half"),  # 2- and 4-byte copies
+    (4, 16, 27, 1, "half"),            # features 2 bytes off alignment
+    (64, 64, 64, 0, "half"),           # K at its limit
+    (64, 64, 27, 0, "tail"), (16, 32, 27, 0, "tail"),  # a partial last tile
+    (64, 64, 27, 0, "tiles"), (4, 16, 27, 0, "tiles"),  # empty beside full
+    (16, 32, 1, 0, "half"), (64, 64, 1, 0, "tiles"),   # K = 1
+    (32, 32, 27, 0, "single"), (64, 16, 27, 0, "single"),  # one hit a row
+    (64, 64, 27, 0, "minus1"), (6, 4, 27, 0, "minus1"),  # misses -1, Vin+
+    (32, 64, 27, 0, "batches"), (3, 8, 27, 0, "batches")])  # batch 2
+def test_k1_bf16_cuda_matches_plain(cuda_device, cin, cout, k, offset,
+                                    pattern):
+    """K1-bf16 against the plain version in bf16 (f32 sums rounded once)
+    on the rulebooks of ``_bf16_slots``: rows that miss at every offset
     are exactly zero. Two calls are bitwise equal; K1-bf16 counts its own
     launches, apart from K1's."""
     g = torch.Generator().manual_seed(cin * 100 + cout + k)
-    b, vin, vout = 2, 5000, 6001
+    b, vin = 2, 5000
     feat = torch.randn(b, vin, cin, generator=g).bfloat16()
-    slots = _rulebook(g, b, vin, vout, k, 0.4)
-    slots[:, vout // 2:] = vin
+    slots, vout = _bf16_slots(g, pattern, b, vin, k)
     w = (torch.randn(k, cin, cout, generator=g)
          * (k * cin) ** -0.5).bfloat16()
     ref = cuda_sparse_conv.gather_gemm_plain(feat, slots, w).float()
@@ -163,8 +227,41 @@ def test_k1_bf16_cuda_matches_plain(cuda_device, cin, cout, k, offset):
     out = out.float().cpu()
     tol = 2.0 ** -7 * ref.abs() + 1e-5 * ref.abs().max()
     assert ((out - ref).abs() <= tol).all()
-    pad = out[:, vout // 2:]
-    assert torch.equal(pad, torch.zeros_like(pad))
+    missed = ~((slots >= 0) & (slots < vin)).any(-1)
+    assert missed.any() or pattern == "single"
+    assert torch.equal(out[missed], torch.zeros_like(out[missed]))
+    assert (out[~missed] != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,cin,cout", [(27, 4, 16), (27, 64, 64),
+                                        (3, 6, 4), (64, 40, 32)])
+def test_k1_bf16_cuda_weight_arrangement(cuda_device, k, cin, cout):
+    """The kernel's weight arrangement (``arrange_weight_kernel``) writes
+    exactly the bytes of the plain ``arrange_weight``, padding zero."""
+    g = torch.Generator().manual_seed(k + cin + cout)
+    w = torch.randn(k, cin, cout, generator=g).bfloat16()
+    cin_p, cout_p = cuda_sparse_conv_bf16.padded_widths(cin, cout)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = cuda_sparse_conv_bf16.arrange_on_device(w.to(cuda_device), stream)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), cuda_sparse_conv_bf16.arrange_weight(
+        w, cin_p, cout_p))
+
+
+@pytest.mark.cuda
+def test_k1_bf16_cuda_smem_mirror(cuda_device):
+    """The CUDA source's stages and shared memory a block equal the
+    Python mirror's for every width and K of the domain."""
+    lib = cuda_sparse_conv_bf16._load()
+    for cin in range(1, 65):
+        for cout in (4, 8, 16, 32, 64):
+            cin_p, cout_p = cuda_sparse_conv_bf16.padded_widths(cin, cout)
+            assert lib.sparse_conv_bf16_stages(cin, cout) == (
+                cuda_sparse_conv_bf16.stages_for(cin_p, cout_p))
+            for k in (1, 27, 64):
+                assert lib.sparse_conv_bf16_smem_bytes(k, cin, cout) == (
+                    cuda_sparse_conv_bf16.smem_bytes(k, cin_p, cout_p))
 
 
 @pytest.mark.cuda
