@@ -22,7 +22,9 @@ nuScenes-format fixture tree, and car.fhd fine-tuned from an imported
 upstream checkpoint (``utils/checkpoint_import.py``) through ``train``
 (``pretrained_path``, ``freeze_include``, ``profile_steps``, the
 momentum and RMSProp optimizers, the EMA), ``evaluate``,
-``script.py`` and the viewer backend. Phases 6-9
+``script.py`` and the viewer backend, and car.fhd's data-parallel
+training over a ``torch.distributed`` group through ``train`` and
+``evaluate`` (``second_tpu_torch/parallel``). Phases 6-9
 clear the sampler
 for ``make_kitti_scene`` frames, which have no database; the fixture
 trees of phases 9 and 10 have one. Phases, each printed as it runs:
@@ -88,9 +90,7 @@ trees of phases 9 and 10 have one. Phases, each printed as it runs:
      falling, the checkpoint, the median step ms of steps 2-9, data-fetch
      ms, the final eval's fps through the flat pillar path and K4 into
      the official AP, peak memory; ``train(resume=True)`` for 2 more
-     steps from the checkpoint; the learning proof
-     (``tools/overfit_ap.py``, 1000 steps): bev and 3d AP >= 55, printed
-     beside the JAX package's ``OVERFIT_AP.json``;
+     steps from the checkpoint;
  10. car.fhd training with the GT-database sampler: ``create_data
      kitti_data_prep`` on 16 fixture frames at KITTI density (infos,
      reduced clouds, the GT database); a sampled batch from the train
@@ -102,8 +102,7 @@ trees of phases 9 and 10 have one. Phases, each printed as it runs:
      ms, ``sparse_util_max`` and overflow warnings, the final eval
      (rotated NMS: K3 and K4) into the official AP, peak memory;
      ``train(resume=True)`` for 2 more; ``evaluate()``; K1, K2, K3 and
-     K4 launched; car.fhd's learning proof (``tools/overfit_ap.py
-     --model fhd``): bev and 3d AP >= 55;
+     K4 launched;
  11. car.fhd on the device route (``fhd_device``): 4 requests from
      ``make_kitti_scene(RandomState(i))`` through
      ``InferenceContext.build(..., device_voxelize=True)`` with phase
@@ -139,11 +138,7 @@ trees of phases 9 and 10 have one. Phases, each printed as it runs:
      the zoo modules at small widths, card against CPU and a float64
      CPU run, forward and backward: VFELayer, VoxelFeatureExtractor(V2),
      SimpleVoxelRadius, a GroupNorm RPNV2, RPNNoHead, ResNetRPN,
-     bev_box_decode, GHM-C and GHM-R; last, all.fhd's learning proof
-     (``tools/overfit_ap.py --model all``, 1000 steps on 24 fixture
-     frames of two objects of each class): every class's bev and 3d
-     AP at ``overfit_ap.ALL_FLOOR`` (55) or above (IoU 0.7 for Car and
-     Van, 0.5 for Pedestrian and Cyclist);
+     bev_box_decode, GHM-C and GHM-R;
  13. mixed precision (``bf16``): K1-bf16 against its plain version on
      phase 2's 10 convs (max error, also in bf16 ulps; two calls bitwise
      equal; wrapper, device-only and plain ms; its bound); then, counted
@@ -197,7 +192,37 @@ trees of phases 9 and 10 have one. Phases, each printed as it runs:
      viewer backend on 127.0.0.1 (a free port): ``readinfo``,
      ``build_network`` of run A's checkpoint and ``inference_by_idx`` of
      2 frames, each response equal to ``InferenceContext.inference`` on
-     the frame, K3 and K4 launched, the request ms.
+     the frame, K3 and K4 launched, the request ms;
+ 16. data-parallel training (``ddp``, ``second_tpu_torch.parallel``) at
+     car.fhd's width, global batch 8: (a) one process's
+     ``make_train_step`` on phase 7's 8 frames against 2 gloo ranks
+     sharing cuda:0 (``parallel.run_ranks``, ``parallel.dryrun.step_rank``)
+     on 4 frames each from the same weights (every ReLU opened, as the
+     CPU parity tests draw them): the loss within 1e-5, every gradient
+     within 1e-3 in relative L2, the ranks' gradients, parameters and
+     running statistics bitwise equal, and the negative control (each
+     shard alone, gradients averaged by hand) outside 10x that on most
+     batch norms; (b) ``train()`` over the 2 ranks with
+     the sampler on phase 10's tree, 4 steps and 1 resumed, then
+     ``evaluate()`` over them: one log, one set of checkpoints, the AP
+     and detections equal to one process's ``evaluate()`` at a rank's
+     batch; (c) one NCCL
+     rank: its step bitwise the ungrouped step on phase 7's batch (both
+     under ``cudnn.deterministic``), 0 host syncs, ``train()`` 2 steps;
+     (d) ``parallel.dryrun.dryrun_multichip(2, full=True)`` on cuda:0
+     (PointPillars at its published width). Every step ms beside the
+     card's name and power limit; gloo's are two processes sharing one
+     card, not a two-card number. The ranks report their launches,
+     summed as the ``ddp`` path;
+ 17. the three learning proofs (``tools/overfit_ap.py``, 1000 steps
+     each, TF32 off), last and together as three processes on the card,
+     each reporting its APs and launches: PointPillars and car.fhd (bev and
+     3d AP >= 55; PointPillars printed beside the JAX package's
+     ``OVERFIT_AP.json``) and all.fhd (``--model all``, 24 fixture
+     frames of two objects of each class: every class's bev and 3d AP
+     at ``overfit_ap.ALL_FLOOR`` (55) or above, IoU 0.7 for Car and Van,
+     0.5 for Pedestrian and Cyclist); each proof's wall time and the
+     three's together.
 
 Then the script's wall time, one JSON line with the kernels (``ms``
 times the wrapper,
@@ -208,9 +233,11 @@ training batch's 10; ``bound_ms`` is the fp32 bound and
 and 6; K4's ``pp_candidates`` holds phase 8's numbers; ``launches`` count
 the main paths' runs, phases 3, 7, 8, 9 and 10's train() and evaluate()
 runs and phases 11, 12 and 14's requests, train() and evaluate() runs,
-and phase 15's request, train(), evaluate() and viewer runs,
+and phase 15's request, train(), evaluate() and viewer runs, and
+phase 16's ranks,
 with ``launches_by_path`` splitting them, phase 13's as ``bf16``,
-phase 14's as ``nusc_mhead`` and phase 15's as ``finetune``;
+phase 14's as ``nusc_mhead``, phase 15's as ``finetune`` and phase 16's
+as ``ddp``;
 ``proof_launches``
 counts the three learning proofs apart), and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off for the whole run (the
@@ -294,6 +321,7 @@ from second_tpu_torch.ops import (
     cuda_sparse_conv_dw,
     losses,
 )
+from second_tpu_torch.ops import launch_counts
 from second_tpu_torch.ops.nms import candidate_iou
 from second_tpu_torch.ops.sparse import (
     SparseConvFunction,
@@ -304,6 +332,7 @@ from second_tpu_torch.ops.sparse import (
     transpose_rulebook,
 )
 from second_tpu_torch.ops.voxelize import voxelize
+from second_tpu_torch.parallel import dryrun, mesh
 from second_tpu_torch.tools import overfit_ap
 from second_tpu_torch.tools.kitti_fixture import build_kitti_dir
 from second_tpu_torch.tools.nms_profile import clustered_boxes
@@ -409,10 +438,16 @@ ALL_SCENE = dict(classes={"Car": 6, "Pedestrian": 2, "Cyclist": 1, "Van": 1},
                  num_bg_points=16000, points_per_object=250)
 ALL_TRAIN_STEPS = 6
 ZOO_REL_TOL = 1e-4
-# all.fhd's learning proof (the last step of phase 12:
-# tools/overfit_ap.py --model all): each class's bev and 3d AP at
-# overfit_ap.ALL_FLOOR (55, the floor of the other two proofs) or above
+# all.fhd's learning proof (tools/overfit_ap.py --model all): each
+# class's bev and 3d AP at overfit_ap.ALL_FLOOR (55, the floor of the
+# other two proofs) or above
 ALL_PROOF_STEPS = 1000
+# the three learning proofs run last, together, each in its own process
+# (python -m second_tpu_torch.tools.overfit_ap): (name, --model, steps)
+PROOFS = (("pp_proof", "pp", PROOF_STEPS), ("fhd_proof", "fhd",
+                                            FHD_PROOF_STEPS),
+          ("all_proof", "all", ALL_PROOF_STEPS))
+PROOF_TIMEOUT = 600
 # the nuScenes multi-head PointPillars (phase 14): a fixture tree of
 # NUSC_FRAMES frames at nuScenes density (tools/nusc_fixture.py: a key
 # frame and 9 sweeps of 34 720 points, boxes of all 10 classes), 4
@@ -459,6 +494,28 @@ FT_OPTIMIZER_B = "rms_prop_optimizer: { %s }" % FT_SCHEDULE
 FT_FREEZE = "middle_feature_extractor.*"
 FT_THRESHOLDS = (0.3, 0.5)
 FT_VIEWER_FRAMES = 2
+# data-parallel training (phase 16) at car.fhd's width and global batch
+# TRAIN_BATCH: DDP_RANKS gloo ranks sharing cuda:0 (NCCL refuses two
+# ranks on one device), then one NCCL rank. The sharded step against
+# one process on the same 8 frames: the loss within DDP_LOSS_REL_TOL
+# (fp32 sums in another order), every gradient within DDP_GRAD_REL_TOL
+# in relative L2, on weights whose ReLUs are opened (_open_relus: at
+# identity-initialised norms a ReLU input within rounding of zero takes
+# its gate either way in two fp32 programs, which moved the batch
+# norms' gradients by up to 1.9e-1 between one process and the ranks),
+# a batch norm's bias measured against its scale's gradient
+# (_grad_errors); the unsynced control must miss it 10-fold on most
+# norms. The
+# sharded evaluate()'s detections against one process's at a rank's
+# batch within DDP_DETS_TOL, the JAX dry run's limit
+DDP_RANKS = 2
+DDP_TRAIN_STEPS = 4
+DDP_RESUME_STEPS = 1
+DDP_NCCL_STEPS = 2
+DDP_LOSS_REL_TOL = 1e-5
+DDP_GRAD_REL_TOL = 1e-3
+DDP_DETS_TOL = 1e-3
+DDP_TIMEOUT = 900
 # K1's and K2's kernels by name in a torch.profiler trace
 K1_TRACE_NAME = "sparse_conv_kernel"
 K2_TRACE_NAME = "sparse_conv_dw_partial"
@@ -531,8 +588,12 @@ PATH_KERNELS = {
     # viewer's requests
     "finetune": ("sparse_conv_gather_gemm", "sparse_conv_weight_grad",
                  "rotated_iou", "greedy_nms"),
+    # phase 16: the ranks' sharded steps, train() runs and evals,
+    # evaluate() and the dry run (PointPillars: K4), summed over the ranks
+    "ddp": ("sparse_conv_gather_gemm", "sparse_conv_weight_grad",
+            "rotated_iou", "greedy_nms"),
 }
-# the learning proofs (tools/overfit_ap.run), counted apart from the
+# the learning proofs (tools/overfit_ap.py), counted apart from the
 # main paths
 PROOF_KERNELS = {
     "pp_proof": PATH_KERNELS["pp_train"],
@@ -1648,8 +1709,7 @@ def _log_steps(model_dir):
 def phase_pp_train(device, work):
     """Phase 9: PointPillars training through the port's entry points,
     on a fixture tree made under ``work`` (kept for phase 13). Returns
-    the kernel launches of its train() runs and, apart, of the learning
-    proof, and the tree's root."""
+    the kernel launches of its train() runs and the tree's root."""
     pp_step_reference(device)
     work.mkdir()
     root = fixture_tree(work, PP_FRAMES)
@@ -1704,27 +1764,7 @@ def phase_pp_train(device, work):
     launches = read_launches("pp_train")
     log(f"pp train: launches in the train() runs: {launches}")
 
-    reset_launches()
-    t0 = time.perf_counter()
-    res = overfit_ap.run(steps=PROOF_STEPS, out=str(work / "proof"),
-                         device=device)
-    wall = time.perf_counter() - t0
-    proof_launches = read_launches("pp_proof")
-    jax_ref = json.loads(Path("OVERFIT_AP.json").read_text())
-    log(f"learning proof (second_tpu_torch.tools.overfit_ap, "
-        f"{PROOF_STEPS} steps, {res['num_gt']} GT): bbox {res['bbox']}, "
-        f"bev {res['bev']}, 3d {res['3d']}, aos {res['aos']}; wall "
-        f"{wall:.3f} s; JAX package's OVERFIT_AP.json (TPU, "
-        f"{jax_ref['steps']} steps): bbox {jax_ref['bbox']}, bev "
-        f"{jax_ref['bev']}, 3d {jax_ref['3d']}, aos {jax_ref['aos']}; the "
-        f"tool's targets " + ", ".join(
-            f"{k} >= {v} {'met' if res[k] >= v else 'missed'}"
-            for k, v in PROOF_TARGETS.items()))
-    check(res["bev"] >= PROOF_FLOOR and res["3d"] >= PROOF_FLOOR,
-          f"learning proof: bev {res['bev']}, 3d {res['3d']} below "
-          f"{PROOF_FLOOR}")
-    log(f"pp learning proof: launches {proof_launches}")
-    return launches, proof_launches, root
+    return launches, root
 
 
 def _loss_of(net, spec, example, voxelizer=None):
@@ -1883,8 +1923,8 @@ def fhd_train_runs(config, root, work, device, label, steps, resume_steps,
 def phase_fhd_train(device, work):
     """Phase 10: car.fhd training through the port's entry points with
     the GT-database sampler, on a fixture tree made under ``work``.
-    Returns the kernel launches of its train() and evaluate() runs and,
-    apart, of the learning proof, and the tree's root."""
+    Returns the kernel launches of its train() and evaluate() runs and
+    the tree's root."""
     root = fixture_tree(work, FHD_FRAMES, FHD_SCENE)
     config = fixture_config(CONFIG, root, work / "fhd.config",
                             FHD_TRAIN_STEPS)
@@ -1895,25 +1935,7 @@ def phase_fhd_train(device, work):
     log(f"fhd train: launches in the train() and evaluate() runs: "
         f"{launches}")
 
-    reset_launches()
-    t0 = time.perf_counter()
-    proof = overfit_ap.run(steps=FHD_PROOF_STEPS,
-                           out=str(work / "proof"), device=device,
-                           model="fhd")
-    wall = time.perf_counter() - t0
-    proof_launches = read_launches("fhd_proof")
-    log(f"car.fhd learning proof (second_tpu_torch.tools.overfit_ap "
-        f"--model fhd, {FHD_PROOF_STEPS} steps, {proof['num_gt']} GT): "
-        f"bbox {proof['bbox']}, bev {proof['bev']}, 3d {proof['3d']}, "
-        f"aos {proof['aos']}; wall {wall:.3f} s; the tool's targets "
-        + ", ".join(f"{k} >= {v} "
-                    f"{'met' if proof[k] >= v else 'missed'}"
-                    for k, v in PROOF_TARGETS.items()))
-    check(proof["bev"] >= PROOF_FLOOR and proof["3d"] >= PROOF_FLOOR,
-          f"car.fhd learning proof: bev {proof['bev']}, 3d "
-          f"{proof['3d']} below {PROOF_FLOOR}")
-    log(f"car.fhd learning proof: launches {proof_launches}")
-    return launches, proof_launches, root
+    return launches, root
 
 
 def _route_rel(a, b):
@@ -2425,33 +2447,8 @@ def phase_all_fhd(device, work):
     log(f"all.fhd: launches in the requests, train() and evaluate() runs: "
         f"{launches}")
     all_fhd_zoo(device)
-    proof_launches = all_fhd_proof(device, work)
     log(f"phase 12 (all_fhd): {time.perf_counter() - t_phase:.3f} s")
-    return launches, proof_launches
-
-
-def all_fhd_proof(device, work):
-    """all.fhd's learning proof (``tools/overfit_ap.py --model all``):
-    each class's official AP after ``ALL_PROOF_STEPS`` steps, bev and 3d
-    at ``overfit_ap.ALL_FLOOR`` or above. Returns its kernel launches."""
-    reset_launches()
-    t0 = time.perf_counter()
-    proof = overfit_ap.run(steps=ALL_PROOF_STEPS, out=str(work / "proof"),
-                           device=device, model="all")
-    wall = time.perf_counter() - t0
-    proof_launches = read_launches("all_proof")
-    log(f"all.fhd learning proof (second_tpu_torch.tools.overfit_ap "
-        f"--model all, {ALL_PROOF_STEPS} steps, {proof['frames']} frames, "
-        f"GT {proof['num_gt']}; IoU 0.7 Car and Van, 0.5 Cyclist and "
-        f"Pedestrian): " + "; ".join(
-            f"{name} bbox {ap['bbox']}, bev {ap['bev']}, 3d {ap['3d']}, "
-            f"aos {ap['aos']}" for name, ap in proof["classes"].items())
-        + f"; wall {wall:.3f} s; floor {overfit_ap.ALL_FLOOR} on bev and 3d")
-    check(overfit_ap.passed(proof),
-          f"all.fhd learning proof below {overfit_ap.ALL_FLOOR}: "
-          f"{proof['classes']}")
-    log(f"all.fhd learning proof: launches {proof_launches}")
-    return proof_launches
+    return launches
 
 
 def k1_bf16_kernel(ctx, device):
@@ -3325,6 +3322,391 @@ def phase_finetune(device, work, root):
     return launches
 
 
+def by_name(counts):
+    """A process's kernel launches (``ops.launch_counts``, by each
+    wrapper's ``KERNEL``) by this script's kernel names."""
+    return {name: counts[module.KERNEL] for name, module, _, _ in KERNELS}
+
+
+def _add(total, counts):
+    for name, n in by_name(counts).items():
+        total[name] += n
+
+
+def _rel_l2(a, b):
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def _grad_errors(grads, ref):
+    """Each gradient's L2 distance from ``ref``'s over the L2 norm of
+    ``ref``'s, or for a batch norm's bias over the larger of its own and
+    its scale's: where the next norm removes a per-channel shift, the
+    bias's gradient is a nearly cancelling sum that fp32 resolves only
+    to its scale's size (``tests/test_torch_train.py``
+    ``UNRESOLVED_GRADS``: rpn.layers.2.bn.bias, 60 times smaller than
+    its scale's)."""
+    out = {}
+    for name, g in grads.items():
+        scale = float(ref[name].norm())
+        if ".bn" in name and name.endswith(".bias"):
+            scale = max(scale, float(ref[name[:-4] + "weight"].norm()))
+        out[name] = float((g - ref[name]).norm()) / max(scale, 1e-30)
+    return out
+
+
+def _open_relus(net, seed):
+    """Every batch norm's bias drawn in [5, 6] and scale in [0.5, 1], and
+    the heads' kernels scaled by 0.05, as the CPU training parity tests
+    draw them (``tests/test_torch_train.py`` ``train_variables``,
+    ``test_torch_pp_train.pp_train_variables``): every ReLU input then
+    sits units clear of zero, so two fp32 programs that sum in other
+    orders take the same gates and fp32 resolves the gradients."""
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for module in net.modules():
+            if isinstance(module, MaskedBatchNorm):
+                for t, lo, hi in ((module.bias, 5.0, 6.0),
+                                  (module.weight, 0.5, 1.0)):
+                    t.copy_(torch.from_numpy(
+                        rng.uniform(lo, hi, t.shape).astype(np.float32)))
+        for name, p in net.rpn.named_parameters():
+            if name.startswith(("conv_cls", "conv_box", "conv_dir_cls")) \
+                    and name.endswith("weight"):
+                p.mul_(0.05)
+
+
+def ddp_inputs(device, work):
+    """Phase 7's batch of 8 ``make_kitti_scene`` frames (host arrays),
+    car.fhd's config without the sampler and its random weights (seed
+    0, the ReLUs opened: :func:`_open_relus`), written under ``work`` for
+    the ranks."""
+    cfg = without_sampler(load_pipeline_config(CONFIG))
+    config = work / "fhd_nosampler.config"
+    config.write_text(cfg.to_text())
+    parts = build_network(cfg, device)
+    init_weights(parts["net"], torch.Generator().manual_seed(0))
+    _open_relus(parts["net"], 0)
+    host = example_convert(prepare_train_batch(build_prep_func(
+        cfg.train_input_reader, parts, training=True)))
+    weights = {k: v.cpu() for k, v in parts["net"].state_dict().items()}
+    with open(work / "batch.pkl", "wb") as f:
+        pickle.dump(host, f)
+    torch.save(weights, work / "weights.pt")
+    return cfg, host, weights, (str(config), str(work / "batch.pkl"),
+                                str(work / "weights.pt"))
+
+
+def _ungrouped_step(cfg, weights, host, device, rows=slice(None)):
+    """``dryrun.step_outputs`` in this process (no group) on ``rows`` of
+    the host batch, from ``weights``."""
+    parts = build_network(cfg, device)
+    parts["net"].load_state_dict(weights)
+    ex = {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(device)
+          for k, v in host.items()}
+    out = dryrun.step_outputs(parts["net"], parts["spec"], cfg, ex)
+    out["state"] = {k: v.cpu() for k, v in parts["net"].state_dict().items()}
+    return out
+
+
+def ddp_step_parity(device, work, inputs, launches, card):
+    """Phase 16 (a): the sharded step of DDP_RANKS gloo ranks on cuda:0,
+    TRAIN_BATCH / DDP_RANKS frames each, against one process's step on
+    the 8 frames from the same weights; the ranks bitwise equal; the
+    negative control (each shard alone, gradients averaged by hand)."""
+    cfg, host, weights, paths = inputs
+    single = _ungrouped_step(cfg, weights, host, device)
+    again = _ungrouped_step(cfg, weights, host, device)
+    noise = max(_grad_errors(again["grads"], single["grads"]).values())
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh.run_ranks(dryrun.step_rank, DDP_RANKS, args=(
+        str(device), "gloo", *paths, str(work / "step")),
+        timeout=DDP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    outs = [torch.load(r["path"], weights_only=False) for r in ranks]
+    for r in ranks:
+        _add(launches, r["launches"])
+    for key in ("grads", "state"):
+        differ = [n for n, v in outs[0][key].items()
+                  if not torch.equal(v, outs[1][key][n])]
+        check(not differ, f"ddp step: the ranks' {key} differ: {differ}")
+    loss, ref = outs[0]["metrics"]["loss"], single["metrics"]["loss"]
+    loss_rel = abs(loss - ref) / abs(ref)
+    grad_rel = _grad_errors(outs[0]["grads"], single["grads"])
+    worst = max(grad_rel, key=grad_rel.get)
+    log("ddp (a) largest gradient errors: " + ", ".join(
+        f"{n} {grad_rel[n]:.3e}" for n in sorted(
+            grad_rel, key=grad_rel.get, reverse=True)[:8]))
+    alone = [_ungrouped_step(cfg, weights, host, device, shard)
+             for shard in (slice(0, TRAIN_BATCH // 2),
+                           slice(TRAIN_BATCH // 2, TRAIN_BATCH))]
+    averaged = {n: (g + alone[1]["grads"][n]) / 2
+                for n, g in alone[0]["grads"].items()}
+    control = {n: e for n, e in _grad_errors(
+        averaged, single["grads"]).items() if ".bn" in n}
+    outside = sum(v > 10 * DDP_GRAD_REL_TOL for v in control.values())
+    stats_rel = max(_rel_l2(v, single["state"][n])
+                    for n, v in outs[0]["state"].items() if "running" in n)
+    log(f"ddp (a) sharded step ({card}): {DDP_RANKS} gloo ranks sharing "
+        f"cuda:0 at batch {TRAIN_BATCH // DDP_RANKS} each against one "
+        f"process at batch {TRAIN_BATCH}: loss {loss:.6f} vs {ref:.6f} "
+        f"(rel {loss_rel:.3e}, limit {DDP_LOSS_REL_TOL}); num_pos "
+        f"{outs[0]['metrics']['num_pos']:.0f} vs "
+        f"{single['metrics']['num_pos']:.0f}; largest gradient error "
+        f"{grad_rel[worst]:.3e} relative L2 (a norm's bias over its "
+        f"scale's; {worst}; limit "
+        f"{DDP_GRAD_REL_TOL}; the same step twice in one process: "
+        f"{noise:.3e}); running statistics after the step "
+        f"{stats_rel:.3e}; the ranks' gradients, parameters and running "
+        f"statistics bitwise equal; negative control (each shard alone, "
+        f"gradients averaged) on the {len(control)} batch-norm tensors: "
+        f"{outside} outside 10x the limit, median "
+        f"{statistics.median(control.values()):.3e}, largest "
+        f"{max(control.values()):.3e}; step ms: one process "
+        f"{single['ms']:.3f}, ranks {[round(r['ms'], 3) for r in ranks]} "
+        f"(two processes sharing one card, gloo's all-reduce through host "
+        f"memory: not a two-card number); ranks' wall {wall:.3f} s")
+    check(loss_rel <= DDP_LOSS_REL_TOL,
+          f"ddp step: loss {loss} vs {ref} (rel {loss_rel})")
+    check(grad_rel[worst] <= DDP_GRAD_REL_TOL,
+          f"ddp step: gradient {worst} off by {grad_rel[worst]}")
+    check(outside > len(control) // 2,
+          f"ddp step: the unsynced control sits inside 10x the limit on "
+          f"{len(control) - outside} of {len(control)} batch norms")
+    return single
+
+
+def _dets_of(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def ddp_entry_points(device, work, root, launches, card):
+    """Phase 16 (b): train() over DDP_RANKS gloo ranks on cuda:0 with
+    the sampler on phase 10's tree, DDP_TRAIN_STEPS steps and
+    DDP_RESUME_STEPS resumed, then evaluate() over the ranks against one
+    process's evaluate() of the same checkpoint; one log, one set of
+    checkpoints."""
+    steps = DDP_TRAIN_STEPS + DDP_RESUME_STEPS
+    config = fixture_config(CONFIG, root, work / "ddp.config",
+                            DDP_TRAIN_STEPS)
+    resume = fixture_config(CONFIG, root, work / "ddp_resume.config", steps)
+    model_dir = work / "model_ddp"
+    kwargs = dict(model_dir=str(model_dir), display_step=1,
+                  measure_time=True)
+    calls = [("train", dict(config_path=config, **kwargs)),
+             ("train", dict(config_path=resume, resume=True, **kwargs)),
+             ("evaluate", dict(config_path=config, model_dir=str(model_dir),
+                               result_path=str(work / "eval_ddp")))]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = mesh.run_ranks(dryrun.entry_rank, DDP_RANKS, args=(
+        str(device), "gloo", calls), timeout=DDP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for out in outs:
+        _add(launches, out[-1]["launches"])
+    losses, step_ms, fetch_ms, evals, text = _log_steps(model_dir)
+    check(sorted(losses) == list(range(1, steps + 1)),
+          f"ddp train: logged steps {sorted(losses)}: not one log")
+    check(all(np.isfinite(list(losses.values()))),
+          f"ddp train: non-finite loss {losses}")
+    check(text.count(f"ranks={DDP_RANKS}") == 2,
+          "ddp train: the log does not name the ranks")
+    info = json.loads((model_dir / "checkpoints.json").read_text())
+    check(info["all_ckpts"]["voxelnet"] == [
+        f"voxelnet-{DDP_TRAIN_STEPS}.ckpt", f"voxelnet-{steps}.ckpt"],
+        f"ddp train: checkpoints {info['all_ckpts']}")
+    sharded = outs[0][-1]["result"]
+    check(outs[1][-1]["result"] is None, "ddp evaluate: rank 1 returned a "
+          "result")
+    # one process at a rank's batch: the same frames through the same
+    # batched programs
+    rank_batch = (load_pipeline_config(config).eval_input_reader.batch_size
+                  // DDP_RANKS)
+    t1 = time.perf_counter()
+    single = evaluate(config, str(model_dir), batch_size=rank_batch,
+                      result_path=str(work / "eval_one"), device=device)
+    single_wall = time.perf_counter() - t1
+    dets = [_dets_of(work / d / "result.pkl")
+            for d in ("eval_ddp", "eval_one")]
+    check(len(dets[0]) == len(dets[1]) == FHD_FRAMES,
+          f"ddp evaluate: {len(dets[0])} and {len(dets[1])} frames")
+    check([a["metadata"]["image_idx"] for a in dets[0]]
+          == [b["metadata"]["image_idx"] for b in dets[1]],
+          "ddp evaluate: frames out of order")
+    counts = [[len(a["scores"]) for a in d] for d in dets]
+    check(counts[0] == counts[1],
+          f"ddp evaluate: detections per frame {counts[0]} over the ranks, "
+          f"{counts[1]} in one process")
+    err = max((float(np.abs(a[key].astype(np.float64) - b[key]).max())
+               for a, b in zip(*dets) for key in dryrun.DET_KEYS
+               if len(a[key])), default=0.0)
+    check(err <= DDP_DETS_TOL, f"ddp evaluate: detections off by {err}")
+    check(sharded["results"] == single["results"],
+          f"ddp evaluate: the AP differs from one process's (detections "
+          f"within {err}): {sharded['results']} vs {single['results']}")
+    mid = range(2, DDP_TRAIN_STEPS)
+    official = sharded["results"]["official"].splitlines()
+    log(f"ddp (b) train() over {DDP_RANKS} gloo ranks on cuda:0 ({card}): "
+        f"{DDP_TRAIN_STEPS} + {DDP_RESUME_STEPS} resumed steps at global "
+        f"batch {TRAIN_BATCH} with the sampler on {FHD_FRAMES} fixture "
+        f"frames, losses {[round(losses[i], 6) for i in sorted(losses)]}, "
+        f"step ms median of steps 2-{DDP_TRAIN_STEPS - 1} "
+        f"{statistics.median(step_ms[i] for i in mid):.3f} (all "
+        f"{[round(step_ms[i], 3) for i in sorted(step_ms)]}; two processes "
+        f"sharing one card, not a two-card number), data-fetch ms "
+        f"{[round(fetch_ms[i], 3) for i in sorted(fetch_ms)]}; one log, "
+        f"checkpoints {info['all_ckpts']['voxelnet']}; evaluate() over the "
+        f"ranks equals one process's (AP text identical, detections "
+        f"within {err:.3e}; {evals[-1]}; one process {single_wall:.3f} s); "
+        f"ranks' wall {wall:.3f} s: " + " | ".join(official))
+
+
+def _nccl_rank(rank, world_size, init_method, paths, out, config,
+               model_dir):
+    """Rank body of phase 16 (c), one NCCL rank: the step on phase 7's
+    batch under ``cudnn.deterministic`` (for the bitwise comparison),
+    the host syncs of a step, then ``train()`` through the entry point."""
+    torch.backends.cudnn.deterministic = True
+    res = dryrun.step_rank(rank, world_size, init_method, "cuda", "nccl",
+                           *paths, out)
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = load_pipeline_config(paths[0])
+    parts = build_network(cfg, device)
+    parts["net"].load_state_dict(torch.load(paths[2], weights_only=True))
+    with open(paths[1], "rb") as f:
+        ex = mesh.put_sharded(pickle.load(f), device)
+    opt, lr_fn, mom_fn = opt_builder.build(
+        cfg.train_config.optimizer, cfg.train_config.steps,
+        list(parts["net"].parameters()))
+    res["syncs"] = sync_count(make_train_step(
+        parts["net"], parts["spec"], opt, lr_fn, mom_fn), ex)
+    del parts, ex
+    torch.backends.cudnn.deterministic = False
+    train(config, model_dir, display_step=1, measure_time=True,
+          device="cuda", dist_backend="nccl")
+    res["launches"] = launch_counts()
+    return res
+
+
+def ddp_nccl(device, work, root, inputs, single, launches, card):
+    """Phase 16 (c): one NCCL rank; its step bitwise the ungrouped step
+    on the same batch (both under ``cudnn.deterministic``), 0 host syncs,
+    and ``train()`` for DDP_NCCL_STEPS steps."""
+    cfg, host, weights, paths = inputs
+    config = fixture_config(CONFIG, root, work / "nccl.config",
+                            DDP_NCCL_STEPS)
+    model_dir = work / "model_nccl"
+    torch.cuda.empty_cache()
+    (res,) = mesh.run_ranks(_nccl_rank, 1, args=(
+        paths, str(work / "nccl"), config, str(model_dir)),
+        timeout=DDP_TIMEOUT)
+    _add(launches, res["launches"])
+    grouped = torch.load(res["path"], weights_only=False)
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = _ungrouped_step(cfg, weights, host, device)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    differ = [n for n, v in ref["grads"].items()
+              if not torch.equal(v, grouped["grads"][n])]
+    differ += [n for n, v in ref["state"].items()
+               if not torch.equal(v, grouped["state"][n])]
+    losses, step_ms, _, evals, _ = _log_steps(model_dir)
+    n_sync, first = res["syncs"]
+    log(f"ddp (c) one NCCL rank ({card}): the step at batch {TRAIN_BATCH} "
+        f"bitwise the ungrouped step ({len(differ)} tensors differ), "
+        f"{n_sync} host syncs{first}; step ms (cudnn.deterministic) "
+        f"grouped {res['ms']:.3f} vs ungrouped {ref['ms']:.3f} (without "
+        f"cudnn.deterministic, one process: {single['ms']:.3f}); train() "
+        f"{DDP_NCCL_STEPS} steps under NCCL, losses "
+        f"{[round(losses[i], 6) for i in sorted(losses)]}, step ms "
+        f"{[round(step_ms[i], 3) for i in sorted(step_ms)]} (median "
+        f"{statistics.median(step_ms.values()):.3f}), {evals[-1]}")
+    check(not differ, f"ddp nccl: the grouped step differs on {differ}")
+    check(n_sync == 0, f"ddp nccl: {n_sync} host syncs{first}")
+    check(sorted(losses) == list(range(1, DDP_NCCL_STEPS + 1)),
+          f"ddp nccl train: logged steps {sorted(losses)}")
+
+
+def phase_ddp(device, work, root):
+    """Phase 16: data-parallel training at car.fhd's width on phase 10's
+    tree at ``root``: (a) the sharded step's parity, (b) train() and
+    evaluate() over two gloo ranks, (c) one NCCL rank, (d) the dry run at
+    the published PointPillars width. Returns the kernel launches of the
+    ranks, summed."""
+    work.mkdir()
+    card = card_name()
+    t0 = time.perf_counter()
+    launches = dict.fromkeys((name for name, _, _, _ in KERNELS), 0)
+    inputs = ddp_inputs(device, work)
+    single = ddp_step_parity(device, work, inputs, launches, card)
+    ddp_entry_points(device, work, root, launches, card)
+    ddp_nccl(device, work, root, inputs, single, launches, card)
+    t1 = time.perf_counter()
+    res = dryrun.dryrun_multichip(DDP_RANKS, full=True, device=str(device),
+                                  timeout=DDP_TIMEOUT)
+    _add(launches, res["launches"])
+    log(f"ddp (d) dryrun_multichip({DDP_RANKS}, full=True) on cuda:0: loss "
+        f"{res['loss']:.6f}, {res['num_det']} scored detections, max error "
+        f"{res['max_err']}, {time.perf_counter() - t1:.3f} s")
+    for name in PATH_KERNELS["ddp"]:
+        check(launches[name] > 0, f"the ddp path never launched {name}")
+    log(f"ddp: launches in the ranks {launches}; phase wall "
+        f"{time.perf_counter() - t0:.3f} s ({card})")
+    return launches
+
+
+def phase_proofs(work):
+    """The three learning proofs (``tools/overfit_ap.py``, 1000 steps
+    each), last and together: three processes at once on the card
+    (``overfit_ap.run_at_once``), each reporting its APs and kernel
+    launches. Returns the launches by proof."""
+    card = card_name()
+    t0 = time.perf_counter()
+    done = overfit_ap.run_at_once(
+        [(model, steps) for _, model, steps in PROOFS], work, PROOF_TIMEOUT)
+    total = time.perf_counter() - t0
+    results, walls, launches = {}, {}, {}
+    for name, model, _ in PROOFS:
+        results[name], walls[name] = done[model]
+        launches[name] = by_name(results[name].pop("launches"))
+        for kernel in PROOF_KERNELS[name]:
+            check(launches[name][kernel] > 0,
+                  f"the {name} never launched {kernel}")
+    pp, fhd, all_ = (results[name] for name, _, _ in PROOFS)
+    jax_ref = json.loads(Path("OVERFIT_AP.json").read_text())
+    for name, label, res in (("pp_proof", "PointPillars", pp),
+                             ("fhd_proof", "car.fhd", fhd)):
+        log(f"{label} learning proof (second_tpu_torch.tools.overfit_ap "
+            f"--model {res['model']}, {res['steps']} steps, "
+            f"{res['num_gt']} GT): bbox {res['bbox']}, bev {res['bev']}, "
+            f"3d {res['3d']}, aos {res['aos']}; wall {walls[name]:.3f} s; "
+            f"the tool's targets " + ", ".join(
+                f"{k} >= {v} {'met' if res[k] >= v else 'missed'}"
+                for k, v in PROOF_TARGETS.items()))
+        check(res["bev"] >= PROOF_FLOOR and res["3d"] >= PROOF_FLOOR,
+              f"{label} learning proof: bev {res['bev']}, 3d {res['3d']} "
+              f"below {PROOF_FLOOR}")
+    log(f"the JAX package's OVERFIT_AP.json (TPU, {jax_ref['steps']} "
+        f"steps, PointPillars): bbox {jax_ref['bbox']}, bev "
+        f"{jax_ref['bev']}, 3d {jax_ref['3d']}, aos {jax_ref['aos']}")
+    log(f"all.fhd learning proof (--model all, {all_['steps']} steps, "
+        f"{all_['frames']} frames, GT {all_['num_gt']}; IoU 0.7 Car and "
+        f"Van, 0.5 Cyclist and Pedestrian): " + "; ".join(
+            f"{c} bbox {ap['bbox']}, bev {ap['bev']}, 3d {ap['3d']}, aos "
+            f"{ap['aos']}" for c, ap in all_["classes"].items())
+        + f"; wall {walls['all_proof']:.3f} s; floor "
+        f"{overfit_ap.ALL_FLOOR} on bev and 3d")
+    check(overfit_ap.passed(all_),
+          f"all.fhd learning proof below {overfit_ap.ALL_FLOOR}: "
+          f"{all_['classes']}")
+    log(f"the proofs together ({card}): {total:.3f} s wall, each "
+        f"{ {k: round(v, 3) for k, v in walls.items()} }, sum "
+        f"{sum(walls.values()):.3f} s; launches {launches}")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3358,20 +3740,18 @@ def main():
     del parts, batch
     launches["pp_inference"], results["greedy_nms"]["pp_candidates"] = (
         phase_pp(device))
-    proofs = {}
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        launches["pp_train"], proofs["pp_proof"], pp_root = phase_pp_train(
-            device, work / "pp")
-        launches["fhd_train"], proofs["fhd_proof"], root = phase_fhd_train(
-            device, work)
+        launches["pp_train"], pp_root = phase_pp_train(device, work / "pp")
+        launches["fhd_train"], root = phase_fhd_train(device, work)
         launches["fhd_device"] = phase_fhd_device(ctx, device, root, work)
-        launches["all_fhd"], proofs["all_proof"] = phase_all_fhd(
-            device, work / "all_fhd")
+        launches["all_fhd"] = phase_all_fhd(device, work / "all_fhd")
         launches["bf16"], results["sparse_conv_gather_gemm_bf16"] = (
             phase_bf16(ctx, device, work, pp_root, root))
         launches["nusc_mhead"] = phase_nusc_mhead(device, work / "nusc_mhead")
         launches["finetune"] = phase_finetune(device, work / "finetune", root)
+        launches["ddp"] = phase_ddp(device, work / "ddp", root)
+        proofs = phase_proofs(work / "proofs")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -19,6 +19,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from ..parallel import mesh
 from .preprocess import merge_second_batch
 
 
@@ -37,13 +38,35 @@ def _worker_getitem(idx):
     return _WORKER_DATASET[int(idx)]
 
 
+def shard_batches(indices, batch_size, drop_last, rank=0, world_size=1):
+    """The dataset indices of each batch of ``rank``: the global batches
+    of ``batch_size`` cut from ``indices`` (the last one short unless
+    ``drop_last``), of which ``rank`` takes its slice
+    (``parallel.mesh.shard_slice``). A short last batch leaves a rank
+    less, or an empty slice; every rank gets one entry per global
+    batch."""
+    rows = mesh.shard_slice(batch_size, rank, world_size)
+    batches = [indices[i:i + batch_size]
+               for i in range(0, len(indices), batch_size)]
+    if drop_last:
+        batches = [b for b in batches if len(b) == batch_size]
+    return [b[rows] for b in batches]
+
+
 class DataLoader:
     def __init__(self, dataset, batch_size, shuffle=True, num_workers=4,
-                 drop_last=True, prefetch=4, seed=None, mode="thread"):
+                 drop_last=True, prefetch=4, seed=None, mode="thread",
+                 rank=0, world_size=1):
         """mode: "thread" (default) or "process" (fork pool; higher
-        throughput for Python-heavy prep, requires fork-safe usage)."""
+        throughput for Python-heavy prep, requires fork-safe usage).
+
+        rank, world_size: under a process group every rank iterates the
+        same global batches of ``batch_size`` (the same permutation: pass
+        the same ``seed`` on every rank) and yields its own slice of each
+        (:func:`shard_batches`); an empty slice is skipped."""
         self._dataset = dataset
         self._batch_size = batch_size
+        self._rank, self._world_size = rank, world_size
         self._shuffle = shuffle
         self._num_workers = max(num_workers, 1)
         self._drop_last = drop_last
@@ -79,12 +102,9 @@ class DataLoader:
         indices = np.arange(len(self._dataset))
         if self._shuffle:
             self._rng.shuffle(indices)
-        batches = [
-            indices[i:i + self._batch_size]
-            for i in range(0, len(indices), self._batch_size)
-        ]
-        if self._drop_last:
-            batches = [b for b in batches if len(b) == self._batch_size]
+        batches = [b for b in shard_batches(
+            indices, self._batch_size, self._drop_last, self._rank,
+            self._world_size) if len(b)]
 
         q = queue.Queue(maxsize=self._prefetch)
         stop = threading.Event()

@@ -2,10 +2,10 @@
 
 There is no real KITTI data in CI; these helpers build plausible scenes
 (ground plane + boxes with interior points). The port's copy of
-``second_tpu/data/synthetic.py`` (less ``assemble_example``):
-``make_scene`` (``min_gap`` keeps the objects apart, for the on-disk
-fixture of ``tools/kitti_fixture.py``; ``classes`` mixes KITTI classes)
-and ``make_kitti_scene``.
+``second_tpu/data/synthetic.py``: ``make_scene`` (``min_gap`` keeps the
+objects apart, for the on-disk fixture of ``tools/kitti_fixture.py``;
+``classes`` mixes KITTI classes), ``make_kitti_scene`` and
+``assemble_example`` (the multi-rank dry run's batches).
 """
 
 import numpy as np
@@ -174,3 +174,53 @@ def make_kitti_scene(rng, num_cars=10, num_points=18000):
     gt_boxes = np.array(gt_boxes, np.float32)
     names = np.array(["Car"] * num_cars)
     return points, gt_boxes, names
+
+
+def assemble_example(parts, scenes, max_voxels=None):
+    """scenes: list of (points, gt_boxes, gt_names) -> batched train
+    example of host arrays (voxels, dense targets).
+
+    Uses the built voxel_generator / target_assigner / anchor_cache of
+    ``builders.network_builder.build_network``, mirroring
+    prep_pointcloud's voxelize + assign steps (reference
+    second/data/preprocess.py:302-408) with the fixed-shape padding
+    contract.
+    """
+    gen = parts["voxel_generator"]
+    ta = parts["target_assigner"]
+    cache = parts["anchor_cache"]
+    max_voxels = max_voxels or 12000
+    b = len(scenes)
+    t = gen.max_num_points_per_voxel
+    anchors = cache["anchors"].astype(np.float32)
+    a = anchors.shape[0]
+    code = ta.box_coder.code_size
+    nf = scenes[0][0].shape[1]
+
+    ex = {
+        "voxels": np.zeros((b, max_voxels, t, nf), np.float32),
+        "num_points": np.zeros((b, max_voxels), np.int32),
+        "coordinates": np.full((b, max_voxels, 3), -1, np.int32),
+        "anchors": np.broadcast_to(anchors, (b, a, anchors.shape[1])).copy(),
+        "labels": np.zeros((b, a), np.int32),
+        "reg_targets": np.zeros((b, a, code), np.float32),
+        "importance": np.ones((b, a), np.float32),
+    }
+    for i, (points, gt_boxes, gt_names) in enumerate(scenes):
+        res = gen.generate_multi_gpu(points, max_voxels=max_voxels)
+        n = res["voxel_num"]
+        ex["voxels"][i] = res["voxels"]
+        ex["num_points"][i] = res["num_points_per_voxel"]
+        ex["coordinates"][i, :n] = res["coordinates"][:n]
+        gt_classes = np.array(
+            [ta.classes.index(name) + 1 for name in gt_names], np.int32)
+        targets = ta.assign(
+            anchors, cache["anchors_dict"], gt_boxes, anchors_mask=None,
+            gt_classes=gt_classes, gt_names=list(gt_names),
+            matched_thresholds=cache["matched_thresholds"],
+            unmatched_thresholds=cache["unmatched_thresholds"])
+        ex["labels"][i] = targets["labels"]
+        ex["reg_targets"][i] = targets["bbox_targets"]
+        if "importance" in targets:
+            ex["importance"][i] = targets["importance"]
+    return ex

@@ -4,6 +4,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import mesh
+
 
 def promoted(x, dtype):
     """x in the promoted dtype of its own and ``dtype`` (flax's and
@@ -19,10 +21,16 @@ class MaskedBatchNorm(nn.Module):
     rows ``mask`` selects (every row when ``mask`` is None): biased
     variance normalises, the unbiased variance (n = the masked row count
     over the whole batch) updates the running statistics with torch
-    momentum 0.01. In eval mode it uses the running statistics and the
-    mask does not enter. Statistics and the affine run in f32 (f64 for
-    f64 inputs), the output is in x's dtype (bf16 under mixed precision)
-    and the running statistics stay f32, as in JAX.
+    momentum 0.01. Under a process group the batch is the global one,
+    every rank's rows, as in JAX's sharded step: the sums (masked: the
+    sum and the count, then the squared deviations from the global mean,
+    two passes as JAX's variance) go through differentiable all-reduces
+    (``mesh.all_reduce_sum``, the identity at world size 1), so the
+    running statistics agree across the ranks. In eval mode it uses
+    the running statistics and the mask does not enter. Statistics and
+    the affine run in f32 (f64 for f64 inputs), the output is in x's
+    dtype (bf16 under mixed precision) and the running statistics stay
+    f32, as in JAX.
     """
 
     momentum = 0.99  # flax convention: decay of the running statistics
@@ -47,17 +55,24 @@ class MaskedBatchNorm(nn.Module):
             dims = [d for d in range(x.dim()) if d != channel_dim]
             if mask is None:
                 # n / (n - 1) in float32 on the host: a device scalar made
-                # from a host number would be a synchronising copy
-                n = np.float32(x.numel() // x.shape[channel_dim])
+                # from a host number would be a synchronising copy. Every
+                # rank holds as many rows, so the global moments are the
+                # ranks' mean moments
+                w = mesh.world()
+                n = np.float32(w * (x.numel() // x.shape[channel_dim]))
                 bessel = float(n / max(n - np.float32(1.0), np.float32(1.0)))
-                mean = x.mean(dims)
-                var = torch.square(x - mean.view(shape)).mean(dims)
+                mean = mesh.all_reduce_sum(x.mean(dims)) / w
+                var = mesh.all_reduce_sum(
+                    torch.square(x - mean.view(shape)).mean(dims)) / w
             else:
                 m = mask.unsqueeze(channel_dim).to(x.dtype)
-                n = m.sum().clamp(min=1.0)
+                sums = mesh.all_reduce_sum(
+                    torch.cat([(x * m).sum(dims), m.sum().reshape(1)]))
+                n = sums[-1].clamp(min=1.0)
                 bessel = n / (n - 1.0).clamp(min=1.0)
-                mean = (x * m).sum(dims) / n
-                var = (torch.square(x - mean.view(shape)) * m).sum(dims) / n
+                mean = sums[:-1] / n
+                var = mesh.all_reduce_sum(
+                    (torch.square(x - mean.view(shape)) * m).sum(dims)) / n
             with torch.no_grad():
                 unbiased = var * bessel
                 self.running_mean.copy_(self.momentum * self.running_mean

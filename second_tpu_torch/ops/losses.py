@@ -18,6 +18,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
+
 
 def sigmoid_cross_entropy_with_logits(logits, labels):
     """Elementwise TF-style stable sigmoid CE."""
@@ -141,16 +143,23 @@ def _ghm_weights(g, weights, bins, num_codes=1):
     """Each element's gradient-harmonizing weight from its gradient norm
     ``g`` in [0, 1]: num_examples / count[bin] / num_valid_bins, zero
     outside ``weights`` > 0. The histogram is a scatter-add into a
-    fixed-size buffer: no host sync."""
+    fixed-size buffer: no host sync. Under a process group the bin
+    counts and ``num_examples`` are all-reduced: every rank weighs its
+    elements by the global batch's histogram, as JAX's sharded step
+    does."""
     if weights is None:
         valid = torch.ones_like(g, dtype=torch.bool)
     else:
         valid = (weights > 0)[..., None].expand(g.shape)
     validf = valid.to(g.dtype)
-    num_examples = (validf.sum() / num_codes).clamp(min=1.0)
+    num_valid = validf.sum()
     bin_idx = (g * bins).to(torch.int64).clamp(0, bins - 1)
     counts = torch.zeros(bins, dtype=g.dtype, device=g.device).scatter_add_(
         0, torch.where(valid, bin_idx, 0).reshape(-1), validf.reshape(-1))
+    if mesh.world() > 1:  # JAX's histogram is over the global batch
+        sums = mesh.all_reduce_sum(torch.cat([counts, num_valid.reshape(1)]))
+        counts, num_valid = sums[:-1], sums[-1]
+    num_examples = (num_valid / num_codes).clamp(min=1.0)
     num_valid_bins = (counts > 0).sum().to(g.dtype).clamp(min=1.0)
     per_bin = torch.where(counts > 0, num_examples / counts.clamp(min=1.0),
                           0.0)

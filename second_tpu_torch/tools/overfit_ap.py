@@ -36,8 +36,9 @@ the first block of each: IoU 0.7 for Car and Van, 0.5 for Pedestrian
 and Cyclist.
 
 Prints the four APs of the strict-overlap block (for ``all``, of each
-class under "classes") as one JSON line (and writes it to ``--json``
-when given); exits 1 unless 3d >= 85 and aos >= 80, the JAX tool's
+class under "classes") and the process's kernel launches
+(``launches``) as one JSON line (and writes it to ``--json`` when
+given); exits 1 unless 3d >= 85 and aos >= 80, the JAX tool's
 targets, or for ``all`` unless every class's bev and 3d AP reach
 ``ALL_FLOOR``.
 """
@@ -45,12 +46,15 @@ targets, or for ``all`` unless every class's bev and 3d AP reach
 import argparse
 import json
 import re
+import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 from ..configs import load_pipeline_config, schema
 from ..data.kitti_dataset import create_kitti_info_file
+from ..ops import launch_counts
 from ..train.__main__ import train
 from ..utils.config_tool import change_detection_range
 from .kitti_fixture import build_kitti_dir
@@ -74,6 +78,13 @@ SCENES = {
     "all": (24, dict(classes={"Car": 2, "Cyclist": 2, "Pedestrian": 2,
                               "Van": 2})),
 }
+# a proof's process (run_at_once): this module's command line with TF32
+# off, as chip_smoke.py runs the card
+PROCESS_MAIN = ("import sys, torch; "
+                "torch.backends.cuda.matmul.allow_tf32 = False; "
+                "torch.backends.cudnn.allow_tf32 = False; "
+                "from second_tpu_torch.tools import overfit_ap; "
+                "sys.exit(overfit_ap.main())")
 # the floor of every class's bev and 3d AP in the all.fhd proof: the
 # PointPillars and car.fhd proofs' floor; a class that learned ranks
 # most of its 48 objects (each class read 71.97-90.91 on the H100)
@@ -174,6 +185,49 @@ def passed(res):
     return res["3d"] >= 85.0 and res["aos"] >= 80.0
 
 
+def run_at_once(proofs, work, timeout=600.0):
+    """Run ``proofs``, (model, steps) pairs, at once, each in its own
+    process (:data:`PROCESS_MAIN`) writing under ``work``; returns
+    {model: (its JSON result, with the process's "launches"; its wall
+    s)}. Raises when a process fails or the proofs outlast ``timeout``
+    s; a missed target (exit 1) is a result."""
+    work = Path(work)
+    work.mkdir(parents=True)
+    start = time.perf_counter()
+    procs = {}
+    for model, steps in proofs:
+        log = open(work / f"{model}.log", "w")
+        procs[model] = (subprocess.Popen(
+            [sys.executable, "-c", PROCESS_MAIN, "--model", model,
+             "--steps", str(steps), "--out", str(work / model), "--json",
+             str(work / f"{model}.json")],
+            stdout=log, stderr=subprocess.STDOUT), log)
+    walls = {}
+    try:
+        while len(walls) < len(procs):
+            for model, (proc, _) in procs.items():
+                if model not in walls and proc.poll() is not None:
+                    walls[model] = time.perf_counter() - start
+            if time.perf_counter() - start > timeout:
+                raise RuntimeError(f"the proofs outlasted {timeout} s")
+            time.sleep(0.5)
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log.close()
+    out = {}
+    for model, (proc, _) in procs.items():
+        path = work / f"{model}.json"
+        if proc.returncode not in (0, 1) or not path.is_file():
+            tail = (work / f"{model}.log").read_text()[-3000:]
+            raise RuntimeError(f"the {model} proof failed (exit "
+                               f"{proc.returncode}):\n{tail}")
+        out[model] = (json.loads(path.read_text()), walls[model])
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=1000)
@@ -185,6 +239,7 @@ def main():
     args = ap.parse_args()
     res = run(args.steps, args.frames, args.out, device=args.device,
               model=args.model)
+    res["launches"] = launch_counts()
     line = json.dumps(res)
     print(line)
     if args.json:

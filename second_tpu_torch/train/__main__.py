@@ -4,10 +4,29 @@ the reference's second/pytorch/train.py CLI surface).
     python -m second_tpu_torch.train train --config_path=X --model_dir=Y
     python -m second_tpu_torch.train evaluate --config_path=X --model_dir=Y
 
-Both run on ``cuda`` unless given ``--device=cpu``. One device, no mesh:
-the batch is the reader's. Checkpoints keep the upstream JSON-manifest
-layout (``train/checkpoint.py``); the config is snapshotted into
-model_dir as pipeline.config.
+Both run on ``cuda`` unless given ``--device=cpu``. Without a process
+group the batch is the reader's, on one device. Checkpoints keep the
+upstream JSON-manifest layout (``train/checkpoint.py``); the config is
+snapshotted into model_dir as pipeline.config.
+
+Data parallelism (the JAX package's mesh over every device): launched
+by ``torchrun`` (or in a process that already joined a group), each
+process is a rank (``parallel.make_mesh``: NCCL on ``cuda:LOCAL_RANK``,
+gloo on the CPU; ``--dist_backend=gloo --device=cuda:0`` lets ranks
+share one card):
+
+    torchrun --nproc_per_node=N -m second_tpu_torch.train train \
+        --config_path=X --model_dir=Y [--dist_backend=nccl|gloo]
+
+The reader's batch is the global one, trimmed to a multiple of the
+world size as in the JAX package; every rank shuffles with one seed
+that rank 0 broadcasts, takes its contiguous slice of each global batch
+and augments from its own stream of (seed, rank). The step computes the
+global batch's loss, gradients and batch statistics
+(``train.state.make_train_step``), so the ranks' states stay equal.
+Only rank 0 writes the log, pipeline.config, checkpoints, results and
+the profile; every rank restores. The evals split the frames over the
+ranks and gather the detections on rank 0, which computes the AP.
 
 ``device_voxelize`` picks what the loader ships. "auto" (the default):
 for dense middles (PointPillars) the in-range points and compact
@@ -62,10 +81,11 @@ from ..builders import dataset_builder
 from ..builders.network_builder import build_network
 from ..configs import load_pipeline_config
 from ..core.inference import example_convert
-from ..data.loader import DataLoader
+from ..data.loader import DataLoader, shard_batches
 from ..data.prefetch import DevicePrefetcher
 from ..models.sparse_middle import SPARSE_MIDDLE_NAMES
 from ..models.voxelnet import init_weights
+from ..parallel import mesh
 from ..utils.log_tool import SimpleModelLog
 from ..utils.metrics import RunningMetrics
 from ..utils.timer import ModelTimer
@@ -150,6 +170,40 @@ def _restore_or_init(model_dir, state):
     return state
 
 
+def _join_group(device, dist_backend):
+    """This process's device: the rank's (``parallel.make_mesh``) under a
+    launcher or a group this process already joined, else ``device``."""
+    if mesh.launched():
+        return mesh.make_mesh(device, dist_backend)
+    if dist_backend is not None:
+        raise ValueError(f"dist_backend={dist_backend!r} without a process "
+                         f"group: launch the ranks with torchrun")
+    return torch.device(device)
+
+
+def _global_batch(batch_size):
+    """``batch_size`` trimmed to a multiple of the world size, as the JAX
+    package trims it to its device count."""
+    w = mesh.world()
+    if batch_size % w != 0:
+        batch_size = max(w, batch_size - batch_size % w)
+        print(f"adjusted batch_size to {batch_size} for {w} devices")
+    return batch_size
+
+
+class _SilentLog:
+    """The log of a rank other than 0: rank 0 writes the run's one log."""
+
+    def log_text(self, text, step):
+        pass
+
+    def log_metrics(self, metrics, step):
+        pass
+
+    def close(self):
+        pass
+
+
 class _Profile:
     """The JAX package's ``profile_steps`` window as a ``torch.profiler``
     trace: it starts before the run's second step and stops after
@@ -203,7 +257,8 @@ def train(config_path,
           device_voxelize="auto",
           quantize_points=False,
           use_banded=False,
-          device="cuda"):
+          device="cuda",
+          dist_backend=None):
     """Train a detector with the given pipeline config.
 
     device_voxelize "auto" ships, for dense middles (the PointPillars
@@ -224,20 +279,32 @@ def train(config_path,
     worker is safe after CUDA is initialised only while it never touches
     CUDA, and threads need no such promise. On the CPU "auto" forks a
     pool when ``num_workers`` > 0, as the JAX package does.
+
+    dist_backend: the process group's backend under a launcher (see the
+    module's docstring); None picks NCCL on CUDA and gloo on the CPU.
     """
     _unported(quantize_points=quantize_points, use_banded=use_banded)
-    device = torch.device(device)
+    device = _join_group(device, dist_backend)
+    lead = mesh.rank() == 0
     model_dir = Path(model_dir)
     if model_dir.exists() and not resume and (
             model_dir / "checkpoints.json").exists():
         raise ValueError(
             f"model dir {model_dir} exists and resume=False")
+    seed = None
+    if mesh.launched():
+        # one permutation for every rank, its own augmentation stream
+        seed = mesh.broadcast_object(int(np.random.randint(2**31)))
+        np.random.seed(np.random.SeedSequence(
+            (seed, mesh.rank())).generate_state(1)[0])
     cfg, parts, flat_pp, sparse = _build_all(config_path, device)
     refuse_bf16_sparse_training(parts["net"])
-    model_dir.mkdir(parents=True, exist_ok=True)
+    if lead:
+        model_dir.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(config_path, model_dir / "pipeline.config")
+    mesh.barrier()
     if result_path is None:
         result_path = model_dir / "results"
-    shutil.copyfile(config_path, model_dir / "pipeline.config")
     net, spec = parts["net"], parts["spec"]
     train_cfg = cfg.train_config
 
@@ -257,7 +324,8 @@ def train(config_path,
             parts, cfg.eval_input_reader.preprocess.max_number_of_voxels,
             flat_pp)
 
-    batch_size = batch_size or cfg.train_input_reader.batch_size
+    batch_size = _global_batch(
+        batch_size or cfg.train_input_reader.batch_size)
     num_workers = (
         num_workers
         if num_workers is not None
@@ -269,12 +337,14 @@ def train(config_path,
                        else "thread")
     loader = DataLoader(
         dataset, batch_size, shuffle=True, num_workers=num_workers,
-        mode=loader_mode)
+        mode=loader_mode, seed=seed, rank=mesh.rank(),
+        world_size=mesh.world())
 
-    log = SimpleModelLog(model_dir).open()
+    log = SimpleModelLog(model_dir).open() if lead else _SilentLog()
     log.log_text(
         f"second_tpu_torch train: {len(dataset)} frames, batch={batch_size}, "
-        f"device={device}, steps={total_step}", 0)
+        f"device={device}, steps={total_step}"
+        + (f", ranks={mesh.world()}" if mesh.launched() else ""), 0)
 
     state = _restore_or_init(model_dir, TrainState(net, opt))
     if pretrained_path is not None:
@@ -296,7 +366,8 @@ def train(config_path,
     running = RunningMetrics()
     steps_per_epoch = max(len(loader), 1)
     step = start_step = state.global_step
-    profile = _Profile(model_dir, profile_steps, start_step, device)
+    profile = _Profile(model_dir, profile_steps if lead else 0,
+                       start_step, device)
     last_ckpt_time = time.time()
     t_step = time.time()
     anchors_dev = None
@@ -393,7 +464,9 @@ def train(config_path,
         raise
     finally:
         profile.close()
+    mesh.assert_replicated(net)
     ckpt_lib.save(model_dir, state, "voxelnet", step)
+    mesh.barrier()
     _eval("final")
     log.close()
     return str(model_dir)
@@ -418,7 +491,10 @@ def _run_eval(eval_step, eval_dataset, batch_size, num_workers, result_dir,
     """Eval loop: fixed-shape batches, ragged detections, official AP;
     on the parameter EMA where ``optimizer`` keeps one
     (``optimizer.ema_weights``; reference train.py:433-481 restores the
-    moving-average variables for eval)."""
+    moving-average variables for eval). Under a process group each rank
+    runs its slice of every global batch of ``batch_size`` and rank 0
+    gathers the detections, writes them and computes the AP; the other
+    ranks return None."""
     with opt_builder.ema_weights(optimizer):
         return _eval_loop(eval_step, eval_dataset, batch_size, num_workers,
                           result_dir, device, timer, log, step)
@@ -429,7 +505,9 @@ def _eval_loop(eval_step, eval_dataset, batch_size, num_workers, result_dir,
     timer = timer or ModelTimer(enabled=False)
     loader = DataLoader(
         eval_dataset, batch_size, shuffle=False,
-        num_workers=num_workers, drop_last=False)
+        num_workers=num_workers, drop_last=False, rank=mesh.rank(),
+        world_size=mesh.world())
+    local_batch = batch_size // mesh.world()
     detections = []
     t0 = time.time()
 
@@ -453,8 +531,8 @@ def _eval_loop(eval_step, eval_dataset, batch_size, num_workers, result_dir,
         with timer.scope("host_prep"):
             ex_np = example_convert(example)
             real = next(iter(ex_np.values())).shape[0]
-            if real < batch_size:  # pad the tail batch
-                pad = batch_size - real
+            if real < local_batch:  # pad the tail batch
+                pad = local_batch - real
                 ex_np = {
                     k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
                     for k, v in ex_np.items()
@@ -468,6 +546,10 @@ def _eval_loop(eval_step, eval_dataset, batch_size, num_workers, result_dir,
     if pending is not None:
         with timer.scope("eval_step"):
             _drain(pending)
+    per_rank = mesh.gather_to_rank0(detections)
+    if mesh.rank() != 0:
+        return None
+    detections = _in_dataset_order(per_rank, len(eval_dataset), batch_size)
     dt = time.time() - t0
     n = len(detections)
     msg = f"eval: {n} frames in {dt:.3f}s ({n / max(dt, 1e-9):.3f} fps)"
@@ -482,6 +564,25 @@ def _eval_loop(eval_step, eval_dataset, batch_size, num_workers, result_dir,
     return eval_dataset.evaluation(detections, str(result_dir))
 
 
+def _in_dataset_order(per_rank, n, batch_size):
+    """The ranks' detections (each rank's in its own order) in the
+    dataset's order of ``n`` frames: rank r ran its slices
+    (``data.loader.shard_batches``) of the global batches."""
+    w = len(per_rank)
+    if w == 1:
+        return per_rank[0]
+    out = [None] * n
+    for r, dets in enumerate(per_rank):
+        idx = np.concatenate(shard_batches(np.arange(n), batch_size, False,
+                                           r, w))
+        if len(idx) != len(dets):
+            raise RuntimeError(f"rank {r} returned {len(dets)} frames, its "
+                               f"slices hold {len(idx)}")
+        for i, d in zip(idx, dets):
+            out[i] = d
+    return out
+
+
 def evaluate(config_path,
              model_dir,
              result_path=None,
@@ -491,7 +592,8 @@ def evaluate(config_path,
              num_workers=None,
              device_voxelize="auto",
              use_banded=False,
-             device="cuda"):
+             device="cuda",
+             dist_backend=None):
     """Evaluate the latest (or given) checkpoint with the official AP.
 
     device_voxelize "auto": PillarFeatureNet networks on dense middles
@@ -499,9 +601,13 @@ def evaluate(config_path,
     its modules on the host's voxels (and a sparse middle on the host
     plan). True ships points to every network: the device voxelizes,
     and a sparse middle builds its rulebooks there. False ships host
-    voxels."""
+    voxels.
+
+    Under a process group (``train``'s docstring) every rank restores the
+    checkpoint and runs its share of the frames; rank 0 returns the
+    result and writes it, the other ranks return None."""
     _unported(use_banded=use_banded)
-    device = torch.device(device)
+    device = _join_group(device, dist_backend)
     model_dir = Path(model_dir)
     cfg, parts, flat_pp, _ = _build_all(config_path, device)
     net, spec = parts["net"], parts["spec"]
@@ -512,7 +618,8 @@ def evaluate(config_path,
     voxelizer, flat = (_device_paths(
         parts, cfg.eval_input_reader.preprocess.max_number_of_voxels,
         flat_pp) if device_voxelize else (None, None))
-    batch_size = batch_size or cfg.eval_input_reader.batch_size
+    batch_size = _global_batch(
+        batch_size or cfg.eval_input_reader.batch_size)
     num_workers = (
         num_workers
         if num_workers is not None
@@ -534,6 +641,9 @@ def evaluate(config_path,
                                    flat_pp=flat),
                     eval_dataset, batch_size, num_workers, result_path,
                     device, state.optimizer, timer=timer)
+    if mesh.rank() != 0:
+        mesh.barrier()
+        return None
     if measure_time:
         print("avg_time_ms:", {
             k: round(v * 1000, 3)
@@ -544,6 +654,7 @@ def evaluate(config_path,
             print(text)
         with open(Path(result_path) / "metrics.json", "w") as f:
             json.dump(res["detail"], f, indent=2, default=str)
+    mesh.barrier()
     return res
 
 
@@ -578,11 +689,15 @@ def helper_tune_target_assigner(config_path, num_tune_epoch=1,
 def main():
     from ..utils.fire_lite import fire
 
-    fire({
-        "train": train,
-        "evaluate": evaluate,
-        "helper_tune_target_assigner": helper_tune_target_assigner,
-    })
+    try:
+        fire({
+            "train": train,
+            "evaluate": evaluate,
+            "helper_tune_target_assigner": helper_tune_target_assigner,
+        })
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ model dir maps object names to their latest file and keeps a GC'd
 history (max_to_keep); filenames are ``{name}-{global_step}.ckpt``.
 The payload is ``torch.save`` of the network's ``state_dict``, the
 optimizer's state (moments, update count, EMA) and ``global_step``.
-Writes are atomic (tmp + rename). ``restore_pretrained`` loads part of
+Writes are atomic (tmp + rename); under a process group rank 0 writes
+and every rank restores. ``restore_pretrained`` loads part of
 a checkpoint's parameters, chosen by the JAX package's patterns on the
 flax parameter paths.
 """
@@ -18,6 +19,7 @@ from pathlib import Path
 
 import torch
 
+from ..parallel import mesh
 from ..utils.from_flax import flax_path
 
 
@@ -36,11 +38,15 @@ def latest_checkpoint(model_dir, name):
 
 def save(model_dir, state, name, global_step, max_to_keep=8):
     """Write a :class:`~second_tpu_torch.train.state.TrainState` under
-    ``name`` at ``global_step``; returns the file's path."""
+    ``name`` at ``global_step``; returns the file's path. Under a process
+    group only rank 0 writes (the ranks' states are equal); every rank
+    gets the path."""
     model_dir = Path(model_dir)
+    fname = f"{name}-{int(global_step)}.ckpt"
+    if mesh.rank() != 0:
+        return str(model_dir / fname)
     model_dir.mkdir(parents=True, exist_ok=True)
     info_path = model_dir / "checkpoints.json"
-    fname = f"{name}-{int(global_step)}.ckpt"
 
     tmp = model_dir / (fname + ".tmp")
     torch.save({"net": state.net.state_dict(),

@@ -10,6 +10,7 @@ from ..models.pp_fast import pointpillars_infer
 from ..models.sparse_middle import SparseMiddleBase
 from ..models.voxelnet import compute_loss, predict
 from ..ops.voxelize import voxelize
+from ..parallel import mesh
 from ..utils.metrics import classification_metrics
 from .optimizer import AdamW
 
@@ -142,6 +143,18 @@ def make_train_step(net, spec, optimizer, lr_fn, mom_fn, voxelizer=None):
     dense (PointPillars): parameters, gradients and the optimizer's
     state stay f32. With a sparse middle it raises before any step, as
     the JAX package's bf16 sparse training does.
+
+    Under a process group (``parallel.make_mesh``) each rank steps on
+    its shard of the global batch and the step computes what JAX's
+    sharded step computes: the batch norms' and GHM losses' statistics
+    are the global batch's, the gradients are averaged over the ranks
+    (:func:`loss_and_global_grads`) before the clip sees them, and the
+    metrics are the global batch's (:func:`_global_metrics`); the ranks'
+    parameters and batch statistics stay equal, with no broadcast. The
+    step is not wrapped in ``DistributedDataParallel``: its reducer
+    fires on ``.backward()``, and this step takes ``torch.autograd.grad``
+    (no ``.grad`` fields), so it all-reduces the gradients itself. At
+    world size 1 no collective runs.
     """
     refuse_bf16_sparse_training(net)
     state = TrainState(net, optimizer)
@@ -149,8 +162,8 @@ def make_train_step(net, spec, optimizer, lr_fn, mom_fn, voxelizer=None):
 
     def step(example):
         example = _expand_targets(example, spec.box_code_size)
-        res = forward_loss(net, spec, example, voxelizer)
-        grads = torch.autograd.grad(res["loss"], params)
+        res, grads = loss_and_global_grads(net, spec, example, params,
+                                           voxelizer)
         count = optimizer.count
         lr, b1 = lr_fn(count), mom_fn(count)
         grad_norm = optimizer.step(list(grads), lr, b1)
@@ -175,10 +188,56 @@ def make_train_step(net, spec, optimizer, lr_fn, mom_fn, voxelizer=None):
             metrics["cls_stats"] = classification_metrics(
                 res["cls_preds"], labels,
                 encode_background_as_zeros=spec.encode_background_as_zeros)
-        return metrics
+        return _global_metrics(metrics)
 
     step.state = state
     return step
+
+
+def loss_and_global_grads(net, spec, example, params, voxelizer=None):
+    """``forward_loss`` on this rank's examples and the gradients of its
+    loss with respect to ``params``, averaged over the process group's
+    ranks (the gradients themselves without a group). With the batch
+    norms' and GHM losses' statistics summed over the ranks in both
+    directions, the mean of the ranks' gradients is the gradient of the
+    global batch's loss: every normaliser of the loss is per example."""
+    res = forward_loss(net, spec, example, voxelizer)
+    grads = torch.autograd.grad(res["loss"], params)
+    return res, mesh.all_reduce_grads(grads)
+
+
+# the step's metrics that are means over the batch, and those that count
+_MEAN_METRICS = ("loss", "cls_loss", "loc_loss", "cls_pos_loss",
+                 "cls_neg_loss", "dir_loss")
+_SUM_METRICS = ("num_pos", "num_neg")
+
+
+def _global_metrics(metrics):
+    """The step's metrics over the global batch, as JAX's sharded step
+    reports them: the loss terms averaged over the ranks, the counts and
+    ``cls_stats`` summed (one all-reduce in float64, exact for counts),
+    the sparse stages' counts gathered in rank order. All on the device:
+    no host sync. ``metrics`` itself without a group."""
+    w = mesh.world()
+    if w == 1:
+        return metrics
+    out = dict(metrics)
+    stats = dict(metrics["cls_stats"])
+    keys = [k for k in _MEAN_METRICS + _SUM_METRICS if k in metrics]
+    flat = [metrics[k].reshape(-1) for k in keys] + [
+        v.reshape(-1) for v in stats.values()]
+    sums = mesh.all_reduce_sum(torch.cat([t.double() for t in flat]))
+    pieces = sums.split([t.numel() for t in flat])
+    for k, total in zip(keys, pieces):
+        total = total / w if k in _MEAN_METRICS else total
+        out[k] = total.reshape(metrics[k].shape).to(metrics[k].dtype)
+    for (k, v), total in zip(stats.items(), pieces[len(keys):]):
+        stats[k] = total.reshape(v.shape).to(v.dtype)
+    out["cls_stats"] = stats
+    if "sparse_active_counts" in metrics:
+        out["sparse_active_counts"] = mesh.all_gather_cat(
+            metrics["sparse_active_counts"])
+    return out
 
 
 def make_eval_step(net, spec, voxelizer=None, flat_pp=None):

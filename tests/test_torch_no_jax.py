@@ -23,8 +23,9 @@ on a frame of a nuScenes-format fixture tree (``tools/nusc_fixture.py``;
 the nuScenes dataset, the flat pillar path through both heads) and the
 tree's GT database, and checks that none of the refused modules got
 loaded. It also imports the fine-tuning tools (``script``, the
-checkpoint import and its upstream fixture), the viewer backend and the
-host utilities.
+checkpoint import and its upstream fixture), the viewer backend, the
+host utilities and the data-parallel package (``parallel``, its
+``mesh`` and ``dryrun``).
 """
 
 import json
@@ -72,13 +73,15 @@ from second_tpu_torch.models import middle, pp_fast, rpn, voxel_encoders  # noqa
 from second_tpu_torch.ops import box_ops_torch, losses  # noqa: F401
 from second_tpu_torch.ops import cuda_sparse_conv_bf16  # noqa: F401
 from second_tpu_torch.ops import voxelize  # noqa: F401
+from second_tpu_torch import parallel  # noqa: F401
+from second_tpu_torch.parallel import dryrun, mesh  # noqa: F401
 from second_tpu_torch.data import kitti_dataset, loader, prefetch  # noqa
 from second_tpu_torch.data import nusc_eval, nuscenes_dataset  # noqa: F401
 from second_tpu_torch.data.gt_database import create_groundtruth_database
 from second_tpu_torch.models import multi_head  # noqa: F401
 from second_tpu_torch.native import eval_native  # noqa: F401
 from second_tpu_torch.tools import kitti_fixture, nusc_fixture  # noqa
-from second_tpu_torch.tools import overfit_ap  # noqa: F401
+from second_tpu_torch.tools import overfit_ap, proof_spread  # noqa: F401
 from second_tpu_torch.train import checkpoint, optimizer  # noqa: F401
 from second_tpu_torch.train.__main__ import evaluate, train
 from second_tpu_torch.train.state import make_train_step, make_voxelizer_fn
