@@ -30,6 +30,14 @@ runs this path too (its ``rpn_preds`` applies both heads).
 ``get_inference_input_dict`` takes a KITTI info (image index and
 calibration) or a nuScenes one (its sample ``token``, no image or
 calibration) beside the points.
+
+Stages (``utils.timer``; off unless collection is on or a profiler
+records): ``get_inference_input_dict`` runs "prep.voxelize", "prep.plan"
+(sparse middles), "prep.anchor_mask" (in ``prep_pointcloud``) and
+"prep.pack"; ``inference`` runs "upload" (counting "upload_bytes"),
+"net.encode", "net.middle", "net.rpn" and "net.predict". With
+collection on, the batch carries its request's id under
+``timer.REQUEST_KEY`` and both halves record under it.
 """
 
 import numpy as np
@@ -45,6 +53,7 @@ from ..models.sparse_middle import SPARSE_MIDDLE_NAMES, warn_overflow
 from ..models.voxelnet import init_weights, predict
 from ..train import checkpoint as ckpt_lib
 from ..train.state import make_voxelizer_fn, plan_of
+from ..utils import timer
 from ..utils.from_flax import from_flax
 
 # the device-bound keys of a host batch and their dtypes (rulebooks,
@@ -71,8 +80,10 @@ def example_convert(example):
 def example_to_device(example, device):
     """The network's inputs (and the training targets, where the batch
     has them) of a host batch as tensors on ``device``."""
-    return {k: torch.from_numpy(v).to(device)
-            for k, v in example_convert(example).items()}
+    with timer.span("upload"):
+        host = example_convert(example)
+        timer.count("upload_bytes", sum(v.nbytes for v in host.values()))
+        return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
 class InferenceContext:
@@ -132,17 +143,24 @@ class InferenceContext:
                 "P2": calib["P2"],
             }
             input_dict["image"] = info.get("image")
-        example = self.prep_func(input_dict=input_dict)
-        if self.flat_pp:
-            buf, count = pad_points(
-                points, self.parts["voxel_generator"].point_cloud_range,
-                self.points_capacity)
-            example["points"] = buf
-            example["points_count"] = np.array([count], np.int32)
-            for key in ("voxels", "num_points", "coordinates"):
-                del example[key]
-        example["metadata"] = input_dict["metadata"]
-        return merge_second_batch([example])
+        rid = timer.new_request()
+        with timer.request(rid):
+            example = self.prep_func(input_dict=input_dict)
+            with timer.span("prep.pack"):
+                if self.flat_pp:
+                    buf, count = pad_points(
+                        points,
+                        self.parts["voxel_generator"].point_cloud_range,
+                        self.points_capacity)
+                    example["points"] = buf
+                    example["points_count"] = np.array([count], np.int32)
+                    for key in ("voxels", "num_points", "coordinates"):
+                        del example[key]
+                example["metadata"] = input_dict["metadata"]
+                batch = merge_second_batch([example])
+        if rid is not None:
+            batch[timer.REQUEST_KEY] = rid
+        return batch
 
     def init_random(self, seed=0):
         init_weights(self.parts["net"], torch.Generator().manual_seed(seed))
@@ -174,24 +192,28 @@ class InferenceContext:
     def _run(self, example):
         """(preds, detections, the sparse stages' device counts [B, S, 2]
         where the device built the rulebooks, else None)."""
-        ex = example_to_device(example, self.device)
-        net, spec = self.parts["net"], self.parts["spec"]
-        if self.flat_pp:
-            return pointpillars_infer(
-                net, spec, ex, gen=self.parts["voxel_generator"],
-                max_voxels=(self.config.eval_input_reader.preprocess
-                            .max_number_of_voxels)) + (None,)
-        inter = {}
-        with torch.no_grad():
-            if self.voxelizer is not None:
-                voxels, num_points, coords = self.voxelizer(
-                    ex["points"], ex["points_count"])
-            else:
-                voxels, num_points, coords = (
-                    ex["voxels"], ex["num_points"], ex["coordinates"])
-            preds = net(voxels, num_points, coords, plan_of(ex), inter)
-            dets = predict(spec, preds, ex)
-        return preds, dets, inter.get("sparse_active_counts")
+        with timer.request(example.get(timer.REQUEST_KEY)):
+            ex = example_to_device(example, self.device)
+            net, spec = self.parts["net"], self.parts["spec"]
+            if self.flat_pp:
+                return pointpillars_infer(
+                    net, spec, ex, gen=self.parts["voxel_generator"],
+                    max_voxels=(self.config.eval_input_reader.preprocess
+                                .max_number_of_voxels)) + (None,)
+            inter = {}
+            with torch.no_grad():
+                if self.voxelizer is not None:
+                    # the device voxelizer is the first part of the
+                    # encoder's stage; the VFE's span follows it
+                    with timer.span("net.encode"):
+                        voxels, num_points, coords = self.voxelizer(
+                            ex["points"], ex["points_count"])
+                else:
+                    voxels, num_points, coords = (
+                        ex["voxels"], ex["num_points"], ex["coordinates"])
+                preds = net(voxels, num_points, coords, plan_of(ex), inter)
+                dets = predict(spec, preds, ex)
+            return preds, dets, inter.get("sparse_active_counts")
 
     def inference(self, example):
         """Returns ragged per-frame detection dicts. A sparse stage that

@@ -14,13 +14,13 @@ int16-quantized points (``quantize_points`` raises) and the banded
 rulebook plans.
 """
 
-import time
 import warnings
 
 import numpy as np
 
 from ..core import box_ops
 from ..core import preprocess as prep
+from ..utils import timer
 from . import kitti_common as kitti
 
 
@@ -123,262 +123,279 @@ def prep_pointcloud(input_dict,
     [A, code] buffer; the train step scatters them back
     (``train/state.py``). Positives past the capacity are marked
     don't-care, with a warning; "pos_count" reports them all.
+
+    Stages (``utils.timer``): "prep.voxelize" from the entry through the
+    voxelizer, "prep.plan" for the rulebooks, "prep.anchor_mask" for
+    the anchors and their mask; the planner's summed (true_active,
+    capacity) count as "sparse_rows_active" / "sparse_rows_capacity".
     """
     if quantize_points:
         raise NotImplementedError(
             "int16-quantized points (data/point_quant.py) are not ported; "
             "ship f32 points")
-    t = time.time()
-    class_names = target_assigner.classes
-    points = input_dict["lidar"]["points"]
-    if training:
-        anno_dict = input_dict["lidar"]["annotations"]
-        gt_dict = {
-            "gt_boxes": anno_dict["boxes"],
-            "gt_names": anno_dict["names"],
-            "gt_importance": np.ones(
-                [anno_dict["boxes"].shape[0]], dtype=anno_dict["boxes"].dtype),
+    try:
+        timer.stage("prep.voxelize")
+        class_names = target_assigner.classes
+        points = input_dict["lidar"]["points"]
+        if training:
+            anno_dict = input_dict["lidar"]["annotations"]
+            gt_dict = {
+                "gt_boxes": anno_dict["boxes"],
+                "gt_names": anno_dict["names"],
+                "gt_importance": np.ones(
+                    [anno_dict["boxes"].shape[0]],
+                    dtype=anno_dict["boxes"].dtype),
+            }
+            if "difficulty" not in anno_dict:
+                gt_dict["difficulty"] = np.zeros(
+                    [anno_dict["boxes"].shape[0]], dtype=np.int32)
+            else:
+                gt_dict["difficulty"] = anno_dict["difficulty"]
+            if use_group_id and "group_ids" in anno_dict:
+                gt_dict["group_ids"] = anno_dict["group_ids"]
+        calib = input_dict.get("calib")
+
+        if reference_detections is not None:
+            # keep only points inside the frustums of reference 2D
+            # detections (reference data/preprocess.py:162-171)
+            assert calib is not None
+            frustums = box_ops.image_bboxes_to_lidar_frustums(
+                reference_detections, calib["rect"], calib["Trv2c"],
+                calib["P2"])
+            masks = box_ops.mask_points_in_corners(points, frustums)
+            points = points[masks.any(-1)]
+
+        if remove_outside_points:
+            assert calib is not None
+            image_shape = input_dict["image"]["image_shape"]
+            points = box_ops.remove_outside_points(
+                points, calib["rect"], calib["Trv2c"], calib["P2"],
+                image_shape)
+        if remove_environment is True and training:
+            selected = kitti.keep_arrays_by_name(
+                gt_dict["gt_names"], target_assigner.classes)
+            _dict_select(gt_dict, selected)
+            masks = box_ops.points_in_rbbox(points, gt_dict["gt_boxes"])
+            points = points[masks.any(-1)]
+
+        if training:
+            selected = kitti.drop_arrays_by_name(gt_dict["gt_names"],
+                                                 ["DontCare"])
+            _dict_select(gt_dict, selected)
+            if remove_unknown:
+                keep_mask = np.logical_not(gt_dict["difficulty"] == -1)
+                _dict_select(gt_dict, keep_mask)
+            gt_dict.pop("difficulty")
+            if min_points_in_gt > 0:
+                point_counts = box_ops.points_count_rbbox(
+                    points, gt_dict["gt_boxes"])
+                _dict_select(gt_dict, point_counts >= min_points_in_gt)
+            gt_boxes_mask = np.array(
+                [n in class_names for n in gt_dict["gt_names"]],
+                dtype=np.bool_)
+            if db_sampler is not None:
+                group_ids = gt_dict.get("group_ids")
+                sampled_dict = db_sampler.sample_all(
+                    root_path, gt_dict["gt_boxes"], gt_dict["gt_names"],
+                    num_point_features, random_crop, gt_group_ids=group_ids,
+                    calib=calib)
+                if sampled_dict is not None:
+                    sampled_gt_boxes = sampled_dict["gt_boxes"]
+                    gt_dict["gt_names"] = np.concatenate(
+                        [gt_dict["gt_names"], sampled_dict["gt_names"]],
+                        axis=0)
+                    gt_dict["gt_boxes"] = np.concatenate(
+                        [gt_dict["gt_boxes"], sampled_gt_boxes])
+                    gt_boxes_mask = np.concatenate(
+                        [gt_boxes_mask, sampled_dict["gt_masks"]], axis=0)
+                    gt_dict["gt_importance"] = np.concatenate([
+                        gt_dict["gt_importance"],
+                        np.full([sampled_gt_boxes.shape[0]], sample_importance,
+                                dtype=sampled_gt_boxes.dtype),
+                    ])
+                    if group_ids is not None:
+                        gt_dict["group_ids"] = np.concatenate(
+                            [gt_dict["group_ids"], sampled_dict["group_ids"]])
+                    if remove_points_after_sample:
+                        masks = box_ops.points_in_rbbox(points,
+                                                        sampled_gt_boxes)
+                        points = points[np.logical_not(masks.any(-1))]
+                    points = np.concatenate(
+                        [sampled_dict["points"], points], axis=0)
+            prep.noise_per_object_v3_(
+                gt_dict["gt_boxes"],
+                points,
+                gt_boxes_mask,
+                rotation_perturb=gt_rotation_noise,
+                center_noise_std=gt_loc_noise_std,
+                global_random_rot_range=global_random_rot_range,
+                group_ids=gt_dict.get("group_ids"),
+                num_try=100)
+            _dict_select(gt_dict, gt_boxes_mask)
+            gt_dict["gt_classes"] = np.array(
+                [class_names.index(n) + 1 for n in gt_dict["gt_names"]],
+                dtype=np.int32)
+            gt_dict["gt_boxes"], points = prep.random_flip(
+                gt_dict["gt_boxes"], points, 0.5, random_flip_x, random_flip_y)
+            gt_dict["gt_boxes"], points = prep.global_rotation_v2(
+                gt_dict["gt_boxes"], points, *global_rotation_noise)
+            gt_dict["gt_boxes"], points = prep.global_scaling_v2(
+                gt_dict["gt_boxes"], points, *global_scaling_noise)
+            prep.global_translate_(
+                gt_dict["gt_boxes"], points, global_translate_noise_std)
+            bv_range = voxel_generator.point_cloud_range[[0, 1, 3, 4]]
+            mask = prep.filter_gt_box_outside_range_by_center(
+                gt_dict["gt_boxes"], bv_range)
+            _dict_select(gt_dict, mask)
+            gt_dict["gt_boxes"][:, 6] = box_ops.limit_period(
+                gt_dict["gt_boxes"][:, 6], offset=0.5, period=2 * np.pi)
+        if shuffle_points:
+            np.random.shuffle(points)
+
+        voxel_size = voxel_generator.voxel_size
+        pc_range = voxel_generator.point_cloud_range
+        grid_size = voxel_generator.grid_size
+
+        res = voxel_generator.generate_multi_gpu(points, max_voxels)
+        voxels = res["voxels"].astype(out_dtype)
+        coordinates = res["coordinates"].copy()
+        num_points = res["num_points_per_voxel"]
+        num_voxels = int(res["voxel_num"])
+        # -1-pad the empty coordinate rows (static-shape validity marker)
+        coordinates[num_voxels:] = -1
+
+        example = {
+            "voxels": voxels,
+            "num_points": num_points,
+            "coordinates": coordinates,
+            "num_voxels": np.array([num_voxels], dtype=np.int64),
         }
-        if "difficulty" not in anno_dict:
-            gt_dict["difficulty"] = np.zeros(
-                [anno_dict["boxes"].shape[0]], dtype=np.int32)
+        if emit_points:
+            assert sparse_plan_scales is None, (
+                "emit_points is for device-voxelizing models; the sparse "
+                "middle family needs host voxels for the rulebook planner")
+            buf, count = pad_points(points, pc_range, emit_points, out_dtype)
+            example["points"] = buf
+            example["points_count"] = np.array([count], np.int32)
+            # the padded voxel buffer is ~100x the points' bytes; the
+            # device re-voxelizes inside the train step
+            del example["voxels"]
+            del example["num_points"]
+            del example["coordinates"]
+        if sparse_plan_scales is not None:
+            timer.stage("prep.plan")
+            # host-built rulebooks need voxels sorted by linear id
+            d, h, w = sparse_plan_scales[0]["shape"]
+            lin = np.where(
+                coordinates[:, 0] >= 0,
+                (coordinates[:, 0].astype(np.int64) * h + coordinates[:, 1])
+                * w + coordinates[:, 2],
+                d * h * w)
+            order = np.argsort(lin, kind="stable")
+            voxels = voxels[order]
+            coordinates = coordinates[order]
+            num_points = num_points[order]
+            example["voxels"] = voxels
+            example["coordinates"] = coordinates
+            example["num_points"] = num_points
+            from ..models.sparse_middle import build_host_plan
+
+            plan, counts = build_host_plan(
+                coordinates, sparse_plan_scales, return_counts=True)
+            example.update(plan)
+            # per-downsample-stage (true_active, capacity) — spconv never
+            # drops voxels (middle.py:199-209); the train loop surfaces
+            # utilization so capacity overflow is visible, not silent
+            active = np.array([counts[i] for i in sorted(counts)],
+                              dtype=np.int32)
+            example["sparse_active_counts"] = active
+            timer.count("sparse_rows_active", int(active[:, 0].sum()))
+            timer.count("sparse_rows_capacity", int(active[:, 1].sum()))
+        if calib is not None:
+            example["calib"] = calib
+        timer.stage("prep.anchor_mask")
+        feature_map_size = grid_size[:2] // out_size_factor
+        feature_map_size = [*feature_map_size, 1][::-1]
+        if anchor_cache is not None:
+            anchors = anchor_cache["anchors"]
+            anchors_bv = anchor_cache["anchors_bv"]
+            anchors_dict = anchor_cache["anchors_dict"]
+            matched_thresholds = anchor_cache["matched_thresholds"]
+            unmatched_thresholds = anchor_cache["unmatched_thresholds"]
         else:
-            gt_dict["difficulty"] = anno_dict["difficulty"]
-        if use_group_id and "group_ids" in anno_dict:
-            gt_dict["group_ids"] = anno_dict["group_ids"]
-    calib = input_dict.get("calib")
-
-    if reference_detections is not None:
-        # keep only points inside the frustums of reference 2D
-        # detections (reference data/preprocess.py:162-171)
-        assert calib is not None
-        frustums = box_ops.image_bboxes_to_lidar_frustums(
-            reference_detections, calib["rect"], calib["Trv2c"],
-            calib["P2"])
-        masks = box_ops.mask_points_in_corners(points, frustums)
-        points = points[masks.any(-1)]
-
-    if remove_outside_points:
-        assert calib is not None
-        image_shape = input_dict["image"]["image_shape"]
-        points = box_ops.remove_outside_points(
-            points, calib["rect"], calib["Trv2c"], calib["P2"], image_shape)
-    if remove_environment is True and training:
-        selected = kitti.keep_arrays_by_name(
-            gt_dict["gt_names"], target_assigner.classes)
-        _dict_select(gt_dict, selected)
-        masks = box_ops.points_in_rbbox(points, gt_dict["gt_boxes"])
-        points = points[masks.any(-1)]
-    metrics = {}
-
-    if training:
-        selected = kitti.drop_arrays_by_name(gt_dict["gt_names"], ["DontCare"])
-        _dict_select(gt_dict, selected)
-        if remove_unknown:
-            keep_mask = np.logical_not(gt_dict["difficulty"] == -1)
-            _dict_select(gt_dict, keep_mask)
-        gt_dict.pop("difficulty")
-        if min_points_in_gt > 0:
-            point_counts = box_ops.points_count_rbbox(
-                points, gt_dict["gt_boxes"])
-            _dict_select(gt_dict, point_counts >= min_points_in_gt)
-        gt_boxes_mask = np.array(
-            [n in class_names for n in gt_dict["gt_names"]], dtype=np.bool_)
-        if db_sampler is not None:
-            group_ids = gt_dict.get("group_ids")
-            sampled_dict = db_sampler.sample_all(
-                root_path, gt_dict["gt_boxes"], gt_dict["gt_names"],
-                num_point_features, random_crop, gt_group_ids=group_ids,
-                calib=calib)
-            if sampled_dict is not None:
-                sampled_gt_boxes = sampled_dict["gt_boxes"]
-                gt_dict["gt_names"] = np.concatenate(
-                    [gt_dict["gt_names"], sampled_dict["gt_names"]], axis=0)
-                gt_dict["gt_boxes"] = np.concatenate(
-                    [gt_dict["gt_boxes"], sampled_gt_boxes])
-                gt_boxes_mask = np.concatenate(
-                    [gt_boxes_mask, sampled_dict["gt_masks"]], axis=0)
-                gt_dict["gt_importance"] = np.concatenate([
-                    gt_dict["gt_importance"],
-                    np.full([sampled_gt_boxes.shape[0]], sample_importance,
-                            dtype=sampled_gt_boxes.dtype),
-                ])
-                if group_ids is not None:
-                    gt_dict["group_ids"] = np.concatenate(
-                        [gt_dict["group_ids"], sampled_dict["group_ids"]])
-                if remove_points_after_sample:
-                    masks = box_ops.points_in_rbbox(points, sampled_gt_boxes)
-                    points = points[np.logical_not(masks.any(-1))]
-                points = np.concatenate(
-                    [sampled_dict["points"], points], axis=0)
-        prep.noise_per_object_v3_(
-            gt_dict["gt_boxes"],
-            points,
-            gt_boxes_mask,
-            rotation_perturb=gt_rotation_noise,
-            center_noise_std=gt_loc_noise_std,
-            global_random_rot_range=global_random_rot_range,
-            group_ids=gt_dict.get("group_ids"),
-            num_try=100)
-        _dict_select(gt_dict, gt_boxes_mask)
-        gt_dict["gt_classes"] = np.array(
-            [class_names.index(n) + 1 for n in gt_dict["gt_names"]],
-            dtype=np.int32)
-        gt_dict["gt_boxes"], points = prep.random_flip(
-            gt_dict["gt_boxes"], points, 0.5, random_flip_x, random_flip_y)
-        gt_dict["gt_boxes"], points = prep.global_rotation_v2(
-            gt_dict["gt_boxes"], points, *global_rotation_noise)
-        gt_dict["gt_boxes"], points = prep.global_scaling_v2(
-            gt_dict["gt_boxes"], points, *global_scaling_noise)
-        prep.global_translate_(
-            gt_dict["gt_boxes"], points, global_translate_noise_std)
-        bv_range = voxel_generator.point_cloud_range[[0, 1, 3, 4]]
-        mask = prep.filter_gt_box_outside_range_by_center(
-            gt_dict["gt_boxes"], bv_range)
-        _dict_select(gt_dict, mask)
-        gt_dict["gt_boxes"][:, 6] = box_ops.limit_period(
-            gt_dict["gt_boxes"][:, 6], offset=0.5, period=2 * np.pi)
-    if shuffle_points:
-        np.random.shuffle(points)
-
-    voxel_size = voxel_generator.voxel_size
-    pc_range = voxel_generator.point_cloud_range
-    grid_size = voxel_generator.grid_size
-
-    t1 = time.time()
-    res = voxel_generator.generate_multi_gpu(points, max_voxels)
-    voxels = res["voxels"].astype(out_dtype)
-    coordinates = res["coordinates"].copy()
-    num_points = res["num_points_per_voxel"]
-    num_voxels = int(res["voxel_num"])
-    # -1-pad the empty coordinate rows (static-shape validity marker)
-    coordinates[num_voxels:] = -1
-    metrics["voxel_gene_time"] = time.time() - t1
-
-    example = {
-        "voxels": voxels,
-        "num_points": num_points,
-        "coordinates": coordinates,
-        "num_voxels": np.array([num_voxels], dtype=np.int64),
-        "metrics": metrics,
-    }
-    if emit_points:
-        assert sparse_plan_scales is None, (
-            "emit_points is for device-voxelizing models; the sparse "
-            "middle family needs host voxels for the rulebook planner")
-        buf, count = pad_points(points, pc_range, emit_points, out_dtype)
-        example["points"] = buf
-        example["points_count"] = np.array([count], np.int32)
-        # the padded voxel buffer is ~100x the points' bytes; the
-        # device re-voxelizes inside the train step
-        del example["voxels"]
-        del example["num_points"]
-        del example["coordinates"]
-    if sparse_plan_scales is not None:
-        # host-built rulebooks need voxels sorted by linear id
-        d, h, w = sparse_plan_scales[0]["shape"]
-        lin = np.where(
-            coordinates[:, 0] >= 0,
-            (coordinates[:, 0].astype(np.int64) * h + coordinates[:, 1])
-            * w + coordinates[:, 2],
-            d * h * w)
-        order = np.argsort(lin, kind="stable")
-        voxels = voxels[order]
-        coordinates = coordinates[order]
-        num_points = num_points[order]
-        example["voxels"] = voxels
-        example["coordinates"] = coordinates
-        example["num_points"] = num_points
-        from ..models.sparse_middle import build_host_plan
-
-        plan, counts = build_host_plan(
-            coordinates, sparse_plan_scales, return_counts=True)
-        example.update(plan)
-        # per-downsample-stage (true_active, capacity) — spconv never
-        # drops voxels (middle.py:199-209); the train loop surfaces
-        # utilization so capacity overflow is visible, not silent
-        example["sparse_active_counts"] = np.array(
-            [counts[i] for i in sorted(counts)], dtype=np.int32)
-    if calib is not None:
-        example["calib"] = calib
-    feature_map_size = grid_size[:2] // out_size_factor
-    feature_map_size = [*feature_map_size, 1][::-1]
-    if anchor_cache is not None:
-        anchors = anchor_cache["anchors"]
-        anchors_bv = anchor_cache["anchors_bv"]
-        anchors_dict = anchor_cache["anchors_dict"]
-        matched_thresholds = anchor_cache["matched_thresholds"]
-        unmatched_thresholds = anchor_cache["unmatched_thresholds"]
-    else:
-        ret = target_assigner.generate_anchors(feature_map_size)
-        anchors = ret["anchors"].reshape([-1, target_assigner.box_ndim])
-        anchors_dict = target_assigner.generate_anchors_dict(feature_map_size)
-        anchors_bv = box_ops.rbbox2d_to_near_bbox(anchors[:, [0, 1, 3, 4, 6]])
-        matched_thresholds = ret["matched_thresholds"]
-        unmatched_thresholds = ret["unmatched_thresholds"]
-    example["anchors"] = anchors.astype(out_dtype)
-    anchors_mask = None
-    if anchor_area_threshold >= 0:
-        # occupancy-gated anchors via BEV summed-area table
-        coors = coordinates[:num_voxels]
-        dense_voxel_map = box_ops.sparse_sum_for_anchors_mask(
-            coors, tuple(grid_size[::-1][1:]))
-        dense_voxel_map = dense_voxel_map.cumsum(0).cumsum(1)
-        anchors_area = box_ops.fused_get_anchors_area(
-            dense_voxel_map, anchors_bv, voxel_size, pc_range, grid_size)
-        anchors_mask = anchors_area > anchor_area_threshold
-        example["anchors_mask"] = anchors_mask
-    metrics["prep_time"] = time.time() - t
-    if not training:
+            ret = target_assigner.generate_anchors(feature_map_size)
+            anchors = ret["anchors"].reshape([-1, target_assigner.box_ndim])
+            anchors_dict = target_assigner.generate_anchors_dict(
+                feature_map_size)
+            anchors_bv = box_ops.rbbox2d_to_near_bbox(
+                anchors[:, [0, 1, 3, 4, 6]])
+            matched_thresholds = ret["matched_thresholds"]
+            unmatched_thresholds = ret["unmatched_thresholds"]
+        example["anchors"] = anchors.astype(out_dtype)
+        anchors_mask = None
+        if anchor_area_threshold >= 0:
+            # occupancy-gated anchors via BEV summed-area table
+            coors = coordinates[:num_voxels]
+            dense_voxel_map = box_ops.sparse_sum_for_anchors_mask(
+                coors, tuple(grid_size[::-1][1:]))
+            dense_voxel_map = dense_voxel_map.cumsum(0).cumsum(1)
+            anchors_area = box_ops.fused_get_anchors_area(
+                dense_voxel_map, anchors_bv, voxel_size, pc_range, grid_size)
+            anchors_mask = anchors_area > anchor_area_threshold
+            example["anchors_mask"] = anchors_mask
+        timer.stage(None)
+        if not training:
+            return example
+        example["gt_names"] = gt_dict["gt_names"]
+        if create_targets:
+            targets_dict = target_assigner.assign(
+                anchors,
+                anchors_dict,
+                gt_dict["gt_boxes"],
+                anchors_mask,
+                gt_classes=gt_dict["gt_classes"],
+                gt_names=gt_dict["gt_names"],
+                matched_thresholds=matched_thresholds,
+                unmatched_thresholds=unmatched_thresholds,
+                importance=gt_dict["gt_importance"])
+            labels = targets_dict["labels"]
+            reg_targets = targets_dict["bbox_targets"].astype(out_dtype)
+            if compact_targets:
+                # dense [A, code] reg targets are ~6 MB of zeros per
+                # example; ship only the positive rows + int8 labels
+                (pos,) = np.nonzero(labels > 0)
+                n_pos = len(pos)
+                pos_idx = np.full(pos_capacity, len(labels), np.int32)
+                pos_tgt = np.zeros((pos_capacity, reg_targets.shape[1]),
+                                   np.float32)
+                m = min(n_pos, pos_capacity)
+                pos_idx[:m] = pos[:m]
+                pos_tgt[:m] = reg_targets[pos[:m]]
+                if n_pos > pos_capacity:
+                    # truncated positives would otherwise train toward
+                    # zero box offsets — drop them from BOTH losses
+                    labels = labels.copy()
+                    labels[pos[m:]] = -1  # "don't care" (cared mask excludes)
+                    warnings.warn(
+                        f"compact_targets overflow: {n_pos} positive anchors "
+                        f"> pos_capacity {pos_capacity}; {n_pos - m} marked "
+                        "don't-care (raise pos_capacity)", stacklevel=2)
+                example.update({
+                    "labels_i8": labels.astype(np.int8),
+                    "pos_idx": pos_idx,
+                    "pos_targets": pos_tgt,
+                    "pos_count": np.array([n_pos], np.int32),
+                })
+            else:
+                example.update({
+                    "labels": labels,
+                    "reg_targets": reg_targets,
+                })
+            example["importance"] = targets_dict["importance"].astype(
+                out_dtype)
         return example
-    example["gt_names"] = gt_dict["gt_names"]
-    if create_targets:
-        targets_dict = target_assigner.assign(
-            anchors,
-            anchors_dict,
-            gt_dict["gt_boxes"],
-            anchors_mask,
-            gt_classes=gt_dict["gt_classes"],
-            gt_names=gt_dict["gt_names"],
-            matched_thresholds=matched_thresholds,
-            unmatched_thresholds=unmatched_thresholds,
-            importance=gt_dict["gt_importance"])
-        labels = targets_dict["labels"]
-        reg_targets = targets_dict["bbox_targets"].astype(out_dtype)
-        if compact_targets:
-            # dense [A, code] reg targets are ~6 MB of zeros per
-            # example; ship only the positive rows + int8 labels
-            (pos,) = np.nonzero(labels > 0)
-            n_pos = len(pos)
-            pos_idx = np.full(pos_capacity, len(labels), np.int32)
-            pos_tgt = np.zeros((pos_capacity, reg_targets.shape[1]),
-                               np.float32)
-            m = min(n_pos, pos_capacity)
-            pos_idx[:m] = pos[:m]
-            pos_tgt[:m] = reg_targets[pos[:m]]
-            if n_pos > pos_capacity:
-                # truncated positives would otherwise train toward
-                # zero box offsets — drop them from BOTH losses
-                labels = labels.copy()
-                labels[pos[m:]] = -1  # "don't care" (cared mask excludes)
-                warnings.warn(
-                    f"compact_targets overflow: {n_pos} positive anchors "
-                    f"> pos_capacity {pos_capacity}; {n_pos - m} marked "
-                    "don't-care (raise pos_capacity)", stacklevel=2)
-            example.update({
-                "labels_i8": labels.astype(np.int8),
-                "pos_idx": pos_idx,
-                "pos_targets": pos_tgt,
-                "pos_count": np.array([n_pos], np.int32),
-            })
-        else:
-            example.update({
-                "labels": labels,
-                "reg_targets": reg_targets,
-            })
-        example["importance"] = targets_dict["importance"].astype(
-            out_dtype)
-    return example
+    finally:
+        timer.stage(None)
 
 
 def merge_second_batch(batch_list):

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import timer
 from .layers import promoted
 from .registry import register_voxelnet
 from .rpn import ConvBNReLU, RPNNoHead, head_reshape
@@ -115,10 +116,12 @@ class VoxelNetNuscenesMultiHead(VoxelNet):
     def rpn_preds(self, spatial):
         """The backbone on the BEV map [B, C, H, W], then both heads ->
         preds [B, A, ...], large then small."""
-        rpn_out = self.rpn(spatial)
-        r1 = rpn_out["stage0"]
-        crop = int(np.round(r1.shape[2] * 0.1))
-        r1 = r1[:, :, crop:-crop, crop:-crop]
-        small = self.small_head(r1)
-        large = self.large_head(rpn_out["out"])
-        return {k: torch.cat([large[k], small[k]], dim=1) for k in large}
+        with timer.span("net.rpn"):
+            rpn_out = self.rpn(spatial)
+            r1 = rpn_out["stage0"]
+            crop = int(np.round(r1.shape[2] * 0.1))
+            r1 = r1[:, :, crop:-crop, crop:-crop]
+            small = self.small_head(r1)
+            large = self.large_head(rpn_out["out"])
+            return {k: torch.cat([large[k], small[k]], dim=1)
+                    for k in large}

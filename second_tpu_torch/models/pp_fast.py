@@ -27,6 +27,7 @@ on CUDA: the canvas is not bitwise equal run to run there, within ~1e-6
 import torch
 
 from ..ops.voxelize import sort_by_voxel
+from ..utils import timer
 from .middle import scatter_canvas
 from .voxelnet import predict
 
@@ -152,10 +153,12 @@ def pointpillars_infer(net, spec, example, *, gen, max_voxels):
     vs = tuple(float(x) for x in gen.voxel_size)
     rmin = tuple(float(x) for x in gen.point_cloud_range[:3])
     t = int(gen.max_num_points_per_voxel)
-    bev = torch.stack([
-        flat_pfn_bev(vfe, *flat_pillarize(p, n, vs, rmin, grid, max_voxels,
-                                          t)[:5],
-                     max_points_per_voxel=t, grid_size=grid)
-        for p, n in zip(example["points"], example["points_count"][:, 0])])
+    with timer.span("net.encode"):
+        bev = torch.stack([
+            flat_pfn_bev(vfe, *flat_pillarize(p, n, vs, rmin, grid,
+                                              max_voxels, t)[:5],
+                         max_points_per_voxel=t, grid_size=grid)
+            for p, n in zip(example["points"],
+                            example["points_count"][:, 0])])
     preds = net.rpn_preds(bev)
     return preds, predict(spec, preds, example)

@@ -19,6 +19,7 @@ from torch import nn
 from ..ops import box_ops_torch
 from ..ops import losses as L
 from ..ops.nms import nms_bev
+from ..utils import timer
 from .layers import MaskedBatchNorm
 from .sparse_middle import SparseMiddleBase
 from .registry import (
@@ -172,30 +173,34 @@ class VoxelNet(nn.Module):
         middle builds its rulebooks on the device and puts its stages'
         counts into the dict ``intermediates``, when one is given. A
         dense middle takes neither."""
-        voxel_features = self.voxel_feature_extractor(
-            voxels, num_points, coords)
+        with timer.span("net.encode"):
+            voxel_features = self.voxel_feature_extractor(
+                voxels, num_points, coords)
         middle = self.middle_feature_extractor
-        if isinstance(middle, SparseMiddleBase):
-            spatial = middle(voxel_features, coords, sparse_plan,
-                             intermediates)
-        else:
-            spatial = middle(voxel_features, coords)
+        with timer.span("net.middle"):
+            if isinstance(middle, SparseMiddleBase):
+                spatial = middle(voxel_features, coords, sparse_plan,
+                                 intermediates)
+            else:
+                spatial = middle(voxel_features, coords)
         return self.rpn_preds(spatial)
 
     def rpn_preds(self, spatial):
         """The RPN on the BEV map [B, C, H, W] -> preds [B, A, ...]."""
-        preds = self.rpn(spatial)
-        b = spatial.shape[0]
-        cls_size = (self.num_class if self.encode_background_as_zeros
-                    else self.num_class + 1)
-        out = {
-            "box_preds": preds["box_preds"].reshape(b, -1, self.box_code_size),
-            "cls_preds": preds["cls_preds"].reshape(b, -1, cls_size),
-        }
-        if self.use_direction_classifier:
-            out["dir_cls_preds"] = preds["dir_cls_preds"].reshape(
-                b, -1, self.num_direction_bins)
-        return out
+        with timer.span("net.rpn"):
+            preds = self.rpn(spatial)
+            b = spatial.shape[0]
+            cls_size = (self.num_class if self.encode_background_as_zeros
+                        else self.num_class + 1)
+            out = {
+                "box_preds": preds["box_preds"].reshape(
+                    b, -1, self.box_code_size),
+                "cls_preds": preds["cls_preds"].reshape(b, -1, cls_size),
+            }
+            if self.use_direction_classifier:
+                out["dir_cls_preds"] = preds["dir_cls_preds"].reshape(
+                    b, -1, self.num_direction_bins)
+            return out
 
 
 @torch.no_grad()
@@ -390,14 +395,15 @@ def predict(spec: ModelSpec, preds: Dict[str, torch.Tensor],
             example: Dict[str, torch.Tensor]):
     """Batched fixed-size detections: a dict of [B, Nout, ...] tensors
     with a ``valid`` mask."""
-    anchors = example["anchors"]
-    anchors_mask = example.get("anchors_mask")
-    dir_preds = preds.get("dir_cls_preds")
-    frames = [
-        _single_frame_predict(
-            spec, preds["box_preds"][b], preds["cls_preds"][b],
-            None if dir_preds is None else dir_preds[b], anchors[b],
-            None if anchors_mask is None else anchors_mask[b])
-        for b in range(anchors.shape[0])
-    ]
-    return {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+    with timer.span("net.predict"):
+        anchors = example["anchors"]
+        anchors_mask = example.get("anchors_mask")
+        dir_preds = preds.get("dir_cls_preds")
+        frames = [
+            _single_frame_predict(
+                spec, preds["box_preds"][b], preds["cls_preds"][b],
+                None if dir_preds is None else dir_preds[b], anchors[b],
+                None if anchors_mask is None else anchors_mask[b])
+            for b in range(anchors.shape[0])
+        ]
+        return {k: torch.stack([f[k] for f in frames]) for k in frames[0]}

@@ -464,6 +464,7 @@ def train(config_path,
         raise
     finally:
         profile.close()
+        timer.close()
     mesh.assert_replicated(net)
     ckpt_lib.save(model_dir, state, "voxelnet", step)
     mesh.barrier()
@@ -637,17 +638,19 @@ def evaluate(config_path,
     if result_path is None:
         result_path = model_dir / "eval_results" / f"step_{step}"
     timer = ModelTimer(enabled=measure_time)
-    res = _run_eval(make_eval_step(net, spec, voxelizer=voxelizer,
-                                   flat_pp=flat),
-                    eval_dataset, batch_size, num_workers, result_path,
-                    device, state.optimizer, timer=timer)
+    try:
+        res = _run_eval(make_eval_step(net, spec, voxelizer=voxelizer,
+                                       flat_pp=flat),
+                        eval_dataset, batch_size, num_workers, result_path,
+                        device, state.optimizer, timer=timer)
+        avg = timer.get_avg_time_dict()
+    finally:
+        timer.close()
     if mesh.rank() != 0:
         mesh.barrier()
         return None
     if measure_time:
-        print("avg_time_ms:", {
-            k: round(v * 1000, 3)
-            for k, v in timer.get_avg_time_dict().items()})
+        print("avg_time_ms:", {k: round(v * 1000, 3) for k, v in avg.items()})
     if res is not None:
         for name, text in res["results"].items():
             print(f"Evaluation {name}")

@@ -1,0 +1,212 @@
+"""The port's stage spans and counts (``second_tpu_torch/utils/timer.py``)
+on the CPU, through ``InferenceContext`` on the tests' small car.fhd
+(host planner) and PointPillars configs, and through ``evaluate``.
+
+Off, nothing is kept and no profiler range opens; on, every request
+records each of its stages once, in program order and without nesting,
+all under its own id, with the bytes it uploads and the host plan's
+sparse rows; under ``torch.profiler`` the stages are ``user_annotation``
+ranges on the caller's thread.
+"""
+
+import json
+import sys
+import threading
+from collections import Counter
+
+import pytest
+import torch
+
+from second_tpu_torch import configs as port_configs
+from second_tpu_torch.configs import loads_pipeline_config as tloads
+from second_tpu_torch.core.inference import InferenceContext, example_convert
+from second_tpu_torch.data import kitti_dataset as tkd
+from second_tpu_torch.tools import kitti_fixture as tfixture
+from second_tpu_torch.train.__main__ import evaluate, train
+from second_tpu_torch.utils import timer
+
+from test_torch_pointpillars import SMALL_PP_CONFIG, small_pp_points
+from test_torch_slice import SMALL_FHD_CONFIG, small_fhd_points
+
+HOST = {"fhd": ["prep.voxelize", "prep.plan", "prep.anchor_mask",
+                "prep.pack"],
+        "pp": ["prep.voxelize", "prep.anchor_mask", "prep.pack"]}
+DEVICE = {"fhd": ["upload", "net.encode", "net.middle", "net.rpn",
+                  "net.predict"],
+          "pp": ["upload", "net.encode", "net.rpn", "net.predict"]}
+POINTS = {"fhd": small_fhd_points, "pp": small_pp_points}
+
+
+@pytest.fixture(scope="module")
+def contexts():
+    out = {}
+    for name, text in (("fhd", SMALL_FHD_CONFIG), ("pp", SMALL_PP_CONFIG)):
+        ctx = InferenceContext()
+        ctx.build(port_configs.loads_pipeline_config(text), device="cpu")
+        ctx.init_random(0)
+        out[name] = ctx
+    return out
+
+
+@pytest.fixture(autouse=True)
+def collection_off():
+    was = timer.collect(False)
+    timer.reset()
+    yield
+    timer.collect(was)
+    timer.reset()
+
+
+def _request(ctx, points):
+    batch = ctx.get_inference_input_dict({}, points)
+    return batch, ctx.inference(batch)
+
+
+@pytest.mark.parametrize("model", ["fhd", "pp"])
+def test_off_records_nothing_and_opens_no_range(contexts, model,
+                                                monkeypatch):
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: opened.append(name))
+    batch, _ = _request(contexts[model], POINTS[model]())
+    assert timer.REQUEST_KEY not in batch
+    assert timer.snapshot() == {"spans": [], "counts": {}}
+    assert opened == []
+    assert timer.span("a") is timer.span("b")
+    assert timer.new_request() is None
+
+
+@pytest.mark.parametrize("model", ["fhd", "pp"])
+def test_each_request_records_its_stages_once(contexts, model):
+    ctx = contexts[model]
+    timer.collect(True)
+    batches = [_request(ctx, POINTS[model](seed))[0] for seed in (0, 1)]
+    snap = timer.snapshot()
+    rids = [b[timer.REQUEST_KEY] for b in batches]
+    assert len(set(rids)) == 2
+    assert {s.request for s in snap["spans"]} == set(rids)
+    for rid, batch in zip(rids, batches):
+        spans = sorted((s for s in snap["spans"] if s.request == rid),
+                       key=lambda s: s.start_ns)
+        # program order, one span per stage, none inside another
+        assert [s.name for s in spans] == HOST[model] + DEVICE[model]
+        for a, b in zip(spans, spans[1:]):
+            assert a.start_ns <= a.end_ns <= b.start_ns
+        counts = snap["counts"][rid]
+        host = example_convert(batch)
+        assert counts["upload_bytes"] == sum(v.nbytes for v in host.values())
+        if model == "fhd":
+            active = batch["sparse_active_counts"][0]
+            assert counts["sparse_rows_active"] == active[:, 0].sum()
+            assert counts["sparse_rows_capacity"] == active[:, 1].sum()
+            assert counts["sparse_rows_active"] > 0
+        else:
+            assert set(counts) == {"upload_bytes"}
+    timer.reset()
+    assert timer.snapshot() == {"spans": [], "counts": {}}
+
+
+def test_stages_are_ranges_on_the_callers_thread(contexts, tmp_path):
+    ctx = contexts["fhd"]
+    points = small_fhd_points()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    with prof:
+        with torch.profiler.record_function("caller"):
+            _request(ctx, points)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "user_annotation"]
+    (caller,) = [e for e in events if e["name"] == "caller"]
+    names = Counter(e["name"] for e in events)
+    for name in HOST["fhd"] + DEVICE["fhd"]:
+        assert names[name] == 1, name
+    for e in events:
+        if e["name"] != "caller":
+            assert e["tid"] == caller["tid"], e["name"]
+            assert caller["ts"] <= e["ts"]
+            assert e["ts"] + e["dur"] <= caller["ts"] + caller["dur"]
+    # collection stayed off: the ranges are the profiler's alone
+    assert timer.snapshot()["spans"] == []
+
+
+def test_loader_threads_keep_their_requests_apart(contexts):
+    ctx = contexts["pp"]
+    timer.collect(True)
+    made = {}
+    errors = []
+
+    def loader(k):
+        try:
+            made[k] = [(threading.get_ident(),
+                        ctx.get_inference_input_dict(
+                            {}, small_pp_points(10 * k + i)))
+                       for i in range(3)]
+        except Exception as err:  # surfaced below
+            errors.append(err)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=loader, args=(k,))
+                   for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors
+    # the device half of one request runs on this thread
+    tid, batch = made[0][0]
+    ctx.inference(batch)
+    spans = timer.snapshot()["spans"]
+    for k in range(2):
+        for tid, batch in made[k]:
+            rid = batch[timer.REQUEST_KEY]
+            mine = [s for s in spans if s.request == rid]
+            assert sorted(s.name for s in mine if s.thread == tid) == sorted(
+                HOST["pp"])
+            others = [s.name for s in mine if s.thread != tid]
+            assert others == (DEVICE["pp"] if batch is made[0][0][1]
+                              else [])
+    assert len({b[timer.REQUEST_KEY] for k in made for _, b in made[k]}) == 6
+
+
+def test_evaluate_measure_time_logs_regions_and_stages(tmp_path, capsys):
+    root = tmp_path / "kitti"
+    ids = tfixture.build_kitti_dir(root, num_frames=2, seed=0)
+    tkd.create_kitti_info_file(str(root), train_img_ids=ids,
+                               val_img_ids=ids)
+    cfg = tloads(SMALL_PP_CONFIG)
+    for reader, split in ((cfg.train_input_reader, "train"),
+                          (cfg.eval_input_reader, "val")):
+        reader.dataset.dataset_class_name = "KittiDataset"
+        reader.dataset.kitti_root_path = str(root)
+        reader.dataset.kitti_info_path = str(root / f"kitti_infos_{split}.pkl")
+        reader.batch_size = 2
+        reader.preprocess.num_workers = 0
+    cfg.train_config.steps = 1
+    cfg.train_config.save_checkpoints_secs = 3600
+    config = tmp_path / "pp.config"
+    config.write_text(cfg.to_text())
+    model_dir = tmp_path / "model"
+    train(str(config), str(model_dir), display_step=1, measure_time=True,
+          device="cpu")
+    assert not timer.collecting()
+    log = (model_dir / "log.txt").read_text()
+    (line,) = [s for s in log.splitlines() if "avg_time_ms: " in s]
+    for name in ("data_fetch", "train_step", "prep.voxelize",
+                 "prep.anchor_mask", "net.encode", "net.rpn"):
+        assert f"{name}=" in line, name
+    capsys.readouterr()
+    evaluate(str(config), str(model_dir), result_path=str(tmp_path / "e"),
+             measure_time=True, device="cpu")
+    out = capsys.readouterr().out
+    (line,) = [s for s in out.splitlines() if s.startswith("avg_time_ms:")]
+    for name in ("host_prep", "eval_step", "prep.voxelize",
+                 "prep.anchor_mask", "net.encode", "net.rpn",
+                 "net.predict"):
+        assert f"'{name}'" in line, name
+    assert not timer.collecting()
