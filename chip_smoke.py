@@ -123,7 +123,7 @@ trees of phases 9 and 10 have one. Phases, each printed as it runs:
      at a [800, 704] grid (z 41 or 81 cells), the two routes bitwise
      equal on the card and the card against the CPU;
  12. all.fhd (``all_fhd``): 4 requests from
-     ``make_kitti_scene(RandomState(i))`` on the host plan and 4 on the
+     ``make_kitti_scene(RandomState(i))`` on host voxels and 4 on the
      device route (the published single-set NMS: K3 +1, K4 +2 a frame),
      and 4 with ``use_multi_class_nms`` set on every class (K3 +4, K4
      +8 a frame), each with its detections per class and host and
@@ -142,7 +142,7 @@ trees of phases 9 and 10 have one. Phases, each printed as it runs:
  13. mixed precision (``bf16``): K1-bf16 against its plain version on
      phase 2's 10 convs (max error, also in bf16 ulps; two calls bitwise
      equal; wrapper, device-only and plain ms; its bound); then, counted
-     as the ``bf16`` path, 4 car.fhd requests in bf16 on the host plan
+     as the ``bf16`` path, 4 car.fhd requests in bf16 on host voxels
      and 4 on the device route with phase 3's weights (K1 never, K1-bf16
      always launched), 2 all.fhd requests on the device route and 4
      PointPillars requests, each with host and device ms and its preds
@@ -683,6 +683,18 @@ def conv_rows(example):
     return rows
 
 
+def planned_example(ctx, points):
+    """A request of ``points`` as the evaluation loader ships it: the
+    host voxels sorted by linear id with the C++ planner's ``plan_*``
+    rulebooks and stage counts (``ctx``'s own requests ship no plan:
+    their rulebooks are built on the card)."""
+    prep = build_prep_func(ctx.config.eval_input_reader, ctx.parts,
+                           training=False)
+    return merge_second_batch([prep(input_dict={
+        "lidar": {"type": "lidar", "points": points},
+        "metadata": {"image_idx": 0}})])
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -753,8 +765,8 @@ def phase_build():
 def phase_kernels(ctx, device):
     """Each kernel against its plain version at the main path's shapes."""
     results = {}
-    example = ctx.get_inference_input_dict(
-        {}, make_kitti_scene(np.random.RandomState(100))[0])
+    example = planned_example(
+        ctx, make_kitti_scene(np.random.RandomState(100))[0])
     net = ctx.parts["net"]
     mid = net.middle_feature_extractor
     g = torch.Generator().manual_seed(0)
@@ -891,10 +903,9 @@ def phase_slice(ctx):
         boxes = dets[0]["box3d_lidar"]
         check(boxes.ndim == 2 and boxes.shape[1] == 7
               and np.isfinite(boxes).all(), f"frame {i}: bad boxes")
-        active = example["sparse_active_counts"][0].tolist()
         log(f"frame {i}: {len(points)} points, "
-            f"{int(example['num_voxels'][0, 0])} voxels, active per stage "
-            f"{active}, {len(boxes)} detections, host prep "
+            f"{int(example['num_voxels'][0, 0])} voxels, "
+            f"{len(boxes)} detections, host prep "
             f"{(t1 - t0) * 1e3:.3f} ms, device inference "
             f"{(t2 - t1) * 1e3:.3f} ms, total {(t2 - t0) * 1e3:.3f} ms")
     launches = read_launches("inference")
@@ -1110,15 +1121,13 @@ def pp_slice(ctx):
         boxes = dets[0]["box3d_lidar"]
         check(boxes.ndim == 2 and boxes.shape[1] == 7 and len(boxes) > 0
               and np.isfinite(boxes).all(), f"pp frame {i}: bad boxes")
-        metrics = example["metrics"][0]
         log(f"pp frame {i}: {len(points)} points, "
             f"{int(example['num_voxels'][0, 0])} pillars, "
             f"{int(example['anchors_mask'].sum())} of "
             f"{example['anchors_mask'].size} anchors unmasked, "
-            f"{len(boxes)} detections, host prep {(t1 - t0) * 1e3:.3f} ms "
-            f"(of which the host voxelizer, kept for the anchor mask, "
-            f"{metrics['voxel_gene_time'] * 1e3:.3f}), device inference "
-            f"{(t2 - t1) * 1e3:.3f} ms, total {(t2 - t0) * 1e3:.3f} ms")
+            f"{len(boxes)} detections, host prep {(t1 - t0) * 1e3:.3f} ms, "
+            f"device inference {(t2 - t1) * 1e3:.3f} ms, total "
+            f"{(t2 - t0) * 1e3:.3f} ms")
     launches = read_launches("pp_inference")
     if ctx.parts["spec"].use_rotate_nms:
         check(launches["rotated_iou"] > 0,
@@ -1946,8 +1955,9 @@ def _route_rel(a, b):
 def fhd_device_inference(ctx, device):
     """Run 1 of phase 11: ``N_FRAMES`` car.fhd requests at full width
     through ``InferenceContext(device_voxelize=True)``, the weights of
-    ``ctx`` (the host-plan route of phases 3-5). Returns the kernel
-    launches of the requests, and the most points a request shipped."""
+    ``ctx`` (phases 3-5), against the loaders' host plan
+    (``planned_example``). Returns the kernel launches of the requests,
+    and the most points a request shipped."""
     dctx = InferenceContext()
     dctx.build(CONFIG, device=device, device_voxelize=True)
     dctx.parts["net"].load_state_dict(ctx.parts["net"].state_dict())
@@ -1982,7 +1992,7 @@ def fhd_device_inference(ctx, device):
 
     for i, (points, example) in enumerate(zip(frames, examples)):
         t0 = time.perf_counter()
-        host = ctx.get_inference_input_dict({}, points)
+        host = planned_example(ctx, points)
         host_ms = (time.perf_counter() - t0) * 1e3
         ex = example_to_device(example, device)
         with torch.no_grad():
@@ -2029,8 +2039,7 @@ def fhd_device_inference(ctx, device):
     # frame 0, timed: the rulebooks per scale, and the device path
     # launched and as a CUDA-graph replay (no host sync on it)
     ex = example_to_device(examples[0], device)
-    host = example_to_device(ctx.get_inference_input_dict({}, frames[0]),
-                             device)
+    host = example_to_device(planned_example(ctx, frames[0]), device)
     hplan = {k: v for k, v in host.items() if k.startswith("plan_")}
     hnet = ctx.parts["net"]
     with torch.no_grad():
@@ -2050,7 +2059,7 @@ def fhd_device_inference(ctx, device):
             return predict(spec, hnet(host["voxels"], host["num_points"],
                                       host["coordinates"], hplan), host)
 
-        host_np = ctx.get_inference_input_dict({}, frames[0])
+        host_np = planned_example(ctx, frames[0])
         parts = {"h2d device route": cuda_ms(
             lambda: example_to_device(examples[0], device), iters=5,
             warmup=2), "h2d host route": cuda_ms(
@@ -2420,7 +2429,7 @@ def phase_all_fhd(device, work):
         f"multi-class run sets it on every class")
 
     reset_launches()
-    for label, c, per_class in (("all.fhd host plan", ctx, False),
+    for label, c, per_class in (("all.fhd host voxels", ctx, False),
                                 ("all.fhd device route", dctx, False),
                                 ("all.fhd multi-class NMS", mctx, True)):
         nms = n if per_class else 1
@@ -2459,8 +2468,8 @@ def k1_bf16_kernel(ctx, device):
     device-only ms (20 calls in a CUDA graph) and the plain ms, and the
     bound (bf16 bytes at 3.35 TB/s, 2 operations per hit at 989
     TFLOP/s)."""
-    example = ctx.get_inference_input_dict(
-        {}, make_kitti_scene(np.random.RandomState(100))[0])
+    example = planned_example(
+        ctx, make_kitti_scene(np.random.RandomState(100))[0])
     mid = ctx.parts["net"].middle_feature_extractor
     g = torch.Generator().manual_seed(0)
     in_rows = conv_rows(example)
@@ -2701,7 +2710,7 @@ def phase_bf16(ctx, device, work, pp_root, fhd_root):
 
     reset_launches()
     worst = {}
-    for label, c, refs in (("car.fhd bf16 host plan", fhd_host, fhd_refs),
+    for label, c, refs in (("car.fhd bf16 host voxels", fhd_host, fhd_refs),
                            ("car.fhd bf16 device route", fhd_dev, fhd_refs)):
         worst[label] = bf16_requests(label, c, refs)
     check(cuda_sparse_conv.launches == 0,

@@ -9,14 +9,17 @@ Usage:
     example = ctx.get_inference_input_dict(info, points)
     dets = ctx.inference(example)   # ragged per-frame dicts
 
-The host side (voxelizer, anchors, rulebook planner) is the port's copy
-of the JAX package's framework-free numpy and C++; the network, decode
-and NMS run in PyTorch on ``device``. A sparse middle (car.fhd) takes
-its rulebooks from the host planner by default; with
-``build(..., device_voxelize=True)`` the example ships the in-range
-points instead, and the device voxelizes them and builds every rulebook
-(the JAX package's route when its planner is absent). Neither falls
-back to the other.
+The host side (voxelizer, anchors) is the port's copy of the JAX
+package's framework-free numpy and C++; the network, decode and NMS run
+in PyTorch on ``device``. A sparse middle (car.fhd) builds its
+rulebooks on the device (``models.sparse_middle.build_device_plan``,
+inside ``net.middle``), the JAX package's route when its planner is
+absent: the example ships the host voxelizer's voxels, counts and
+coordinates, sorted by linear id on the host, and no ``plan_*``
+rulebooks. The C++ planner (``build_host_plan``) stays with the
+training and evaluation loaders, where loader threads hide it behind
+the step. With ``build(..., device_voxelize=True)`` the example ships
+the in-range points instead, and the device voxelizes them too.
 
 A PillarFeatureNet encoder on a dense middle (PointPillars) runs the
 flat pillar path (``models.pp_fast``), as the JAX package serves it:
@@ -32,13 +35,18 @@ calibration) or a nuScenes one (its sample ``token``, no image or
 calibration) beside the points.
 
 Stages (``utils.timer``; off unless collection is on or a profiler
-records): ``get_inference_input_dict`` runs "prep.voxelize", "prep.plan"
-(sparse middles), "prep.anchor_mask" (in ``prep_pointcloud``) and
-"prep.pack"; ``inference`` runs "upload" (counting "upload_bytes"),
-"net.encode", "net.middle", "net.rpn" and "net.predict". With
-collection on, the batch carries its request's id under
-``timer.REQUEST_KEY`` and both halves record under it.
+records): ``get_inference_input_dict`` runs "prep.voxelize",
+"prep.anchor_mask" (in ``prep_pointcloud``), "prep.plan" (sparse
+middles on host voxels: the linear-id sort) and "prep.pack";
+``inference`` runs "upload" (counting "upload_bytes"), "net.encode",
+"net.middle", "net.rpn" and "net.predict", and counts a sparse
+middle's "sparse_rows_active" / "sparse_rows_capacity" from the
+device's stage counts. With collection on, the batch carries its
+request's id under ``timer.REQUEST_KEY`` and both halves record under
+it.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -47,9 +55,10 @@ from ..builders.dataset_builder import build_prep_func, points_capacity
 from ..builders.network_builder import build_network
 from ..configs import load_pipeline_config
 from ..data import merge_second_batch
-from ..data.preprocess import pad_points
+from ..data.preprocess import pad_points, sort_by_linear_id
 from ..models.pp_fast import pointpillars_infer
-from ..models.sparse_middle import SPARSE_MIDDLE_NAMES, warn_overflow
+from ..models.sparse_middle import (SPARSE_MIDDLE_NAMES, plan_scales,
+                                    warn_overflow)
 from ..models.voxelnet import init_weights, predict
 from ..train import checkpoint as ckpt_lib
 from ..train.state import make_voxelizer_fn, plan_of
@@ -95,13 +104,15 @@ class InferenceContext:
         self.flat_pp = False
         self.voxelizer = None
         self.points_capacity = None
+        self.sort_shape = None
 
     def build(self, config_path_or_config, device, device_voxelize=False):
         """device_voxelize: ship the request's in-range points
-        (``points_capacity`` rows) and voxelize them on the device, where a
-        sparse middle builds its rulebooks too; False ships the host's
-        voxels and, for a sparse middle, its host plan. PointPillars
-        networks run the flat pillar path on points either way."""
+        (``points_capacity`` rows) and voxelize them on the device; False
+        ships the host's voxels, for a sparse middle sorted by linear id.
+        A sparse middle builds its rulebooks on the device either way.
+        PointPillars networks run the flat pillar path on points either
+        way."""
         if isinstance(config_path_or_config, str):
             self.config = load_pipeline_config(config_path_or_config)
         else:
@@ -109,17 +120,24 @@ class InferenceContext:
         self.device = torch.device(device)
         self.parts = build_network(self.config, self.device)
         model_cfg = self.parts["model_cfg"]
-        self.flat_pp = (
-            model_cfg.middle_feature_extractor.module_class_name
-            not in SPARSE_MIDDLE_NAMES
-            and model_cfg.voxel_feature_extractor.module_class_name
-            .startswith("PillarFeatureNet"))
+        middle = model_cfg.middle_feature_extractor.module_class_name
+        sparse = middle in SPARSE_MIDDLE_NAMES
+        self.flat_pp = (not sparse and model_cfg.voxel_feature_extractor
+                        .module_class_name.startswith("PillarFeatureNet"))
         ship_points = device_voxelize and not self.flat_pp
         reader = self.config.eval_input_reader
         self.points_capacity = points_capacity(reader)
         self.prep_func = build_prep_func(
             reader, self.parts, training=False,
             emit_points=self.points_capacity if ship_points else 0)
+        self.sort_shape = None
+        if sparse and not ship_points:
+            # no host plan: a request sorts its voxels, the device plans
+            self.sort_shape = plan_scales(
+                middle, self.parts["dense_shape"],
+                reader.preprocess.max_number_of_voxels)[0]["shape"]
+            self.prep_func = functools.partial(self.prep_func,
+                                               sparse_plan_scales=None)
         self.voxelizer = (make_voxelizer_fn(
             self.parts["voxel_generator"],
             reader.preprocess.max_number_of_voxels) if ship_points else None)
@@ -146,6 +164,9 @@ class InferenceContext:
         rid = timer.new_request()
         with timer.request(rid):
             example = self.prep_func(input_dict=input_dict)
+            if self.sort_shape is not None:
+                with timer.span("prep.plan"):
+                    sort_by_linear_id(example, self.sort_shape)
             with timer.span("prep.pack"):
                 if self.flat_pp:
                     buf, count = pad_points(
@@ -190,8 +211,8 @@ class InferenceContext:
         return self._run(example)[:2]
 
     def _run(self, example):
-        """(preds, detections, the sparse stages' device counts [B, S, 2]
-        where the device built the rulebooks, else None)."""
+        """(preds, detections, a sparse middle's stage counts [B, S, 2]
+        on the device, else None)."""
         with timer.request(example.get(timer.REQUEST_KEY)):
             ex = example_to_device(example, self.device)
             net, spec = self.parts["net"], self.parts["spec"]
@@ -216,13 +237,19 @@ class InferenceContext:
             return preds, dets, inter.get("sparse_active_counts")
 
     def inference(self, example):
-        """Returns ragged per-frame detection dicts. A sparse stage that
-        dropped voxels on the device route warns, as the host planner
-        does."""
+        """Returns ragged per-frame detection dicts. A sparse middle's
+        stage counts follow the detections to the host: they count as
+        the request's "sparse_rows_active" / "sparse_rows_capacity", and
+        a stage that dropped voxels warns, as the host planner does."""
         _, dets, active = self._run(example)
         dets = {k: v.cpu().numpy() for k, v in dets.items()}
         if active is not None:
-            for i, (total, cap) in enumerate(active.cpu().numpy().max(0)):
+            active = active.cpu().numpy()
+            with timer.request(example.get(timer.REQUEST_KEY)):
+                timer.count("sparse_rows_active", int(active[..., 0].sum()))
+                timer.count("sparse_rows_capacity",
+                            int(active[..., 1].sum()))
+            for i, (total, cap) in enumerate(active.max(0)):
                 if total > cap:
                     warn_overflow(i, int(total), int(cap))
         out = []

@@ -7,12 +7,16 @@ gather-GEMM kernel K1, over rulebooks from one of two routes:
 
 * the host plan (:func:`build_host_plan`, the C++ planner of
   ``second_tpu_torch.native.sparse_plan``), shipped with the example as
-  ``plan_*`` arrays and voxels sorted by linear id;
+  ``plan_*`` arrays and voxels sorted by linear id: the training and
+  evaluation loaders' route, whose threads hide the planner behind the
+  step;
 * no plan (None or empty): :func:`build_device_plan` builds the same
   rulebooks on the device from the voxel coords (``ops.sparse``'s
-  builders), as the JAX package does when it has no host plan. The
-  stages' (true active, capacity) counts then come back as a device
-  tensor.
+  builders), as the JAX package does when it has no host plan: every
+  request of ``core.inference.InferenceContext`` (host voxels sorted by
+  linear id, or points voxelized on the device) and the loaders'
+  ``device_voxelize`` route. The stages' (true active, capacity) counts
+  then come back as a device tensor.
 
 From ``dense_from_scale`` on, the convs run as masked dense ``conv3d``
 over the scattered grid: inactive inputs are zero, so a subm conv is
@@ -175,8 +179,8 @@ def build_device_plan(grid, scales):
     at the scale's capacity. Returns the plan dict of
     :func:`build_host_plan`'s keys, batched [B, ...] (slots int32, a
     miss V_i; coords int32), and the downsample stages' (true active,
-    capacity) counts [B, S, 2] int64, all on the grid's device and read
-    nowhere on the host.
+    capacity) counts [B, S, 2] int64, all on the grid's device; nothing
+    here reads them on the host.
     """
     plan, counts = {}, []
     for i, sc in enumerate(scales):
@@ -488,7 +492,8 @@ class SpMiddle2K(SparseMiddleBase):
     capacity_factors = (3.25, 1.1, 1.1, 0.7, 0.9)
 
 
-# the sparse middle family: rulebooks from the host planner or the device
+# the sparse middle family: rulebooks from the host planner (loaders) or
+# the device (requests, and the loaders' device route)
 SPARSE_MIDDLE_NAMES = frozenset({
     "SpMiddleFHD", "SpMiddleFHDPeople", "SpMiddleFHDLite",
     "SpMiddleFHDLiteHRZ", "SpMiddleFHDHRZ", "SpMiddle2K",

@@ -64,7 +64,6 @@ import torch
 from ..builders.dataset_builder import build_prep_func
 from ..builders.network_builder import build_network
 from ..configs import load_pipeline_config, schema
-from ..core.inference import InferenceContext
 from ..csrc import build
 from ..data import make_kitti_scene, merge_second_batch
 from ..models.voxelnet import init_weights
@@ -227,17 +226,19 @@ def graph_ms(fn, iters=20, replays=5):
 
 def rulebooks(device):
     """(label, batch, example) of one inference frame and one batch of 8
-    training frames, as ``chip_smoke.py`` prepares them."""
-    ctx = InferenceContext()
-    ctx.build(CONFIG, device=device)
-    frame = ctx.get_inference_input_dict(
-        {}, make_kitti_scene(np.random.RandomState(0))[0])
+    training frames, as ``chip_smoke.py`` prepares them (both with the
+    loaders' host plan: a request ships none)."""
     cfg = load_pipeline_config(CONFIG)
     # the GT-database sampler is not ported (build_prep_func raises)
     cfg.train_input_reader.preprocess.database_sampler = (
         schema.Sampler.from_raw({}))
     parts = build_network(cfg, device)
     init_weights(parts["net"], torch.Generator().manual_seed(0))
+    frame = merge_second_batch([build_prep_func(
+        cfg.eval_input_reader, parts, training=False)(input_dict={
+            "lidar": {"points": make_kitti_scene(
+                np.random.RandomState(0))[0]},
+            "metadata": {"image_idx": 0}})])
     prep = build_prep_func(cfg.train_input_reader, parts, training=True)
     np.random.seed(0)
     frames = []

@@ -96,7 +96,7 @@ from test_torch_multiclass import frame_points, reduced_text
 from test_torch_pointpillars import SMALL_PP_CONFIG, small_pp_points
 from test_torch_pp_train import MAX_VOXELS as PP_VOXELS
 from test_torch_pp_train import _point_batch, pp_train_variables
-from test_torch_slice import SMALL_FHD_CONFIG, random_variables
+from test_torch_slice import SMALL_FHD_CONFIG, host_plan_of, random_variables
 from test_torch_train import _sync_to_jax
 from test_torch_zoo import RPN_BASE, _nchw, _nhwc
 
@@ -555,9 +555,11 @@ def fhd():
     return jctx, tctx, f32ctx, variables, small_fhd_points()
 
 
-def _jax_preds(net, variables, example):
+def _jax_preds(net, variables, example, plan):
+    """The JAX network's preds of a port request's ``example`` on the
+    host ``plan`` of its voxels (``host_plan_of``)."""
     ex = {k: jnp.asarray(v) for k, v in example_convert(example).items()}
-    plan = {k: v for k, v in ex.items() if k.startswith("plan_")}
+    plan = {k: jnp.asarray(v) for k, v in plan.items()}
     assert plan, "the config must exercise the host planner"
     return jax.jit(lambda v, e, p: net.apply(
         v, e["voxels"], e["num_points"], e["coordinates"], train=False,
@@ -583,7 +585,8 @@ def test_fhd_builds_in_bf16(fhd):
 def test_fhd_bf16_preds_and_detections_match_jax(fhd):
     jctx, tctx, f32ctx, variables, points = fhd
     example = tctx.get_inference_input_dict({}, points)
-    jpreds, _ = _jax_preds(jctx.parts["net"], variables, example)
+    jpreds, _ = _jax_preds(jctx.parts["net"], variables, example,
+                           host_plan_of(tctx, example))
     preds, _ = tctx.run(example)
     preds32, _ = f32ctx.run(f32ctx.get_inference_input_dict({}, points))
     for key in ("box_preds", "cls_preds", "dir_cls_preds"):
@@ -598,7 +601,7 @@ def test_fhd_bf16_preds_and_detections_match_jax(fhd):
 
 def test_fhd_bf16_device_route_matches_host_route(fhd):
     """``device_voxelize=True``: the same voxels and rulebooks, so the
-    same bf16 preds as the host plan."""
+    same bf16 preds as the host voxels."""
     _, tctx, _, variables, points = fhd
     dctx = InferenceContext()
     dctx.build(tctx.config, device="cpu", device_voxelize=True)
@@ -622,7 +625,8 @@ def test_all_fhd_bf16_preds_and_detections_match_jax():
     f32ctx.build(tloads(reduced_text(multiclass_nms=True)), device="cpu")
     f32ctx.load_flax_variables(variables)
     example = ctx.get_inference_input_dict({}, frame_points(0))
-    jpreds, ex = _jax_preds(jparts["net"], variables, example)
+    jpreds, ex = _jax_preds(jparts["net"], variables, example,
+                            host_plan_of(ctx, example))
     preds, dets = ctx.run(example)
     preds32, _ = f32ctx.run(example)
     for key in ("box_preds", "cls_preds", "dir_cls_preds"):

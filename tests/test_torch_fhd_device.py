@@ -18,7 +18,12 @@ port's kernels run as their plain PyTorch versions here.
 * ``InferenceContext.build(..., device_voxelize=True)`` against the JAX
   package's ``make_eval_step`` with its voxelizer on the same example:
   preds 1e-4, detections 1e-4 on boxes and scores, exact on counts and
-  labels; the port's host-plan route on the same frame within 1e-5.
+  labels; the port's host-voxel route on the same frame within 1e-5.
+* ``InferenceContext.build(...)`` on host voxels: the example ships no
+  plan, its voxels are the host-planned prep's (sorted by linear id)
+  element by element, and the rulebooks built on the device give
+  bitwise the preds and detections of the network on
+  ``build_host_plan``'s rulebooks.
 * With the GT-database sampler: the first sampled loss within 1e-4
   (relative) of the JAX package's on the same frames, then ``train``
   (``device_voxelize=True``) for 2 steps and 1 resumed step of car.fhd's
@@ -55,6 +60,8 @@ from second_tpu_torch.core.inference import InferenceContext, example_to_device
 from second_tpu_torch.data import kitti_dataset as tkd
 from second_tpu_torch.data import gt_database as tgt
 from second_tpu_torch.data import merge_second_batch
+from second_tpu_torch.data.preprocess import sort_by_linear_id
+from second_tpu_torch.models import voxelnet as tvoxelnet
 from second_tpu_torch.tools import kitti_fixture as tfixture
 from second_tpu_torch.train import optimizer as topt
 from second_tpu_torch.train.__main__ import evaluate, train
@@ -251,14 +258,95 @@ def test_inference_context_device_route_matches_jax(setup):
     np.testing.assert_array_equal(tdets["label_preds"],
                                   jdets["label_preds"][0][valid])
 
-    # the port's host-plan route on the same frame
+    # the port's host-voxel route on the same frame (sorted voxels, the
+    # rulebooks built on the device)
     host = InferenceContext()
     host.build(cfg, device="cpu")
     host.load_flax_variables(variables)
-    host_preds, _ = host.run(host.get_inference_input_dict({}, points))
+    host_example = host.get_inference_input_dict({}, points)
+    assert "voxels" in host_example and not any(
+        k.startswith("plan_") for k in host_example)
+    host_preds, _ = host.run(host_example)
     for key, value in preds.items():
         np.testing.assert_allclose(value.numpy(), host_preds[key].numpy(),
                                    atol=1e-5, rtol=1e-5, err_msg=key)
+
+
+def test_inference_context_host_voxels_match_host_plan(setup):
+    """A request on host voxels ships them sorted by linear id and no
+    plan; the device's rulebooks give bitwise what ``build_host_plan``'s
+    give, the planner the loaders keep."""
+    cfg = tloads(SMALL_FHD_CONFIG)
+    cap = cfg.eval_input_reader.preprocess.max_number_of_voxels
+    ctx = InferenceContext()
+    ctx.build(cfg, device="cpu")
+    ctx.load_flax_variables(random_variables(setup[2]["net"], cap))
+    points = small_fhd_points()
+    example = ctx.get_inference_input_dict({}, points)
+    assert not any(k.startswith("plan_") for k in example)
+    assert "sparse_active_counts" not in example
+
+    planned_prep = build_prep_func(cfg.eval_input_reader, ctx.parts,
+                                   training=False)
+    assert planned_prep.keywords["sparse_plan_scales"] is not None
+    planned = merge_second_batch([planned_prep(input_dict={
+        "lidar": {"type": "lidar", "points": points},
+        "metadata": {"image_idx": 0}})])
+    assert any(k.startswith("plan_") for k in planned)
+    n = int(example["num_voxels"][0, 0])
+    assert n > 0 and (np.diff(example["coordinates"][0, :n, 0]) >= 0).all()
+    for key in ("voxels", "num_points", "coordinates", "num_voxels",
+                "anchors"):
+        np.testing.assert_array_equal(example[key], planned[key],
+                                      err_msg=key)
+
+    preds, dets = ctx.run(example)
+    net, spec = ctx.parts["net"], ctx.parts["spec"]
+    ex = example_to_device(planned, "cpu")
+    plan = {k: v for k, v in ex.items() if k.startswith("plan_")}
+    with torch.no_grad():
+        ref = net(ex["voxels"], ex["num_points"], ex["coordinates"], plan)
+        ref_dets = tvoxelnet.predict(spec, ref, ex)
+    assert sorted(preds) == sorted(ref)
+    for key in ref:
+        assert torch.equal(preds[key], ref[key]), key
+    for key in ref_dets:
+        assert torch.equal(dets[key], ref_dets[key]), key
+    assert int(ref_dets["valid"].sum()) > 0, "the frame must detect"
+    out = ctx.inference(example)[0]
+    valid = ref_dets["valid"][0].numpy()
+    np.testing.assert_array_equal(out["box3d_lidar"],
+                                  ref_dets["box3d_lidar"][0].numpy()[valid])
+    np.testing.assert_array_equal(out["scores"],
+                                  ref_dets["scores"][0].numpy()[valid])
+
+
+@pytest.mark.parametrize("padding", ["last", "anywhere"])
+def test_sort_by_linear_id_is_the_stable_sort(padding):
+    """The request's (and the loaders') sort gives the stable argsort of
+    the linear ids, padding (the grid's size) last in row order."""
+    rng = np.random.default_rng(3)
+    for _ in range(20):
+        d, h, w = (int(x) for x in rng.integers(1, 40, 3))
+        rows = int(rng.integers(1, 2000))
+        n = min(int(rng.integers(0, rows + 1)), d * h * w)
+        lin = rng.choice(d * h * w, n, replace=False)
+        coords = np.full((rows, 3), -1, np.int32)
+        coords[:n] = np.stack([lin // (h * w), lin // w % h, lin % w], 1)
+        if padding == "anywhere":
+            coords = coords[rng.permutation(rows)]
+        example = {"voxels": rng.standard_normal((rows, 5, 4)),
+                   "num_points": rng.integers(0, 6, rows),
+                   "coordinates": coords}
+        ref = {k: v.copy() for k, v in example.items()}
+        keys = np.where(coords[:, 0] >= 0, (coords[:, 0].astype(np.int64)
+                        * h + coords[:, 1]) * w + coords[:, 2], d * h * w)
+        order = np.argsort(keys, kind="stable")
+        out = sort_by_linear_id(example, (d, h, w))
+        assert out is example["coordinates"]
+        for key, value in ref.items():
+            np.testing.assert_array_equal(example[key], value[order],
+                                          err_msg=key)
 
 
 def test_first_sampled_loss_device_route_matches_jax(trees):

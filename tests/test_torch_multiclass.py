@@ -67,7 +67,7 @@ from second_tpu_torch.train.__main__ import evaluate, train
 from second_tpu_torch.train.state import forward_loss
 from second_tpu_torch.utils.from_flax import from_flax
 
-from test_torch_slice import random_variables
+from test_torch_slice import host_plan_of, random_variables
 
 CONFIG = "configs/all.fhd.config"
 CLASSES = ("Car", "Cyclist", "Pedestrian", "Van")
@@ -189,7 +189,9 @@ def test_reduced_all_fhd_preds_and_detections_match_jax(reduced):
     example = ctx.get_inference_input_dict({}, frame_points(0))
     preds, dets = ctx.run(example)
     ex = {k: jnp.asarray(v) for k, v in example_convert(example).items()}
-    plan = {k: v for k, v in ex.items() if k.startswith("plan_")}
+    assert not any(k.startswith("plan_") for k in ex)
+    plan = {k: jnp.asarray(v)
+            for k, v in host_plan_of(ctx, example).items()}
     assert plan, "the config must exercise the host planner"
     jpreds = jax.jit(lambda v, e, p: jparts["net"].apply(
         v, e["voxels"], e["num_points"], e["coordinates"], train=False,

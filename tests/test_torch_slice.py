@@ -26,6 +26,7 @@ from second_tpu.train.state import TrainState
 
 from second_tpu_torch import configs as port_configs
 from second_tpu_torch.core.inference import InferenceContext
+from second_tpu_torch.models.sparse_middle import build_host_plan, plan_scales
 
 SMALL_FHD_CONFIG = """
 model: {
@@ -189,6 +190,17 @@ def random_variables(net, voxels_per_frame, seed=1):
     return jax.tree_util.tree_map_with_path(draw, dict(shapes))
 
 
+def host_plan_of(ctx, example):
+    """The loaders' host plan (``build_host_plan``) of a request's voxels,
+    which the host sorts by linear id, batched [1, ...]: a request ships
+    none, since the device builds its rulebooks."""
+    name = ctx.parts["model_cfg"].middle_feature_extractor.module_class_name
+    scales = plan_scales(name, ctx.parts["dense_shape"],
+                         example["voxels"].shape[1])
+    return {k: v[None] for k, v in
+            build_host_plan(example["coordinates"][0], scales).items()}
+
+
 @pytest.fixture(scope="module")
 def both():
     cfg = loads_pipeline_config(SMALL_FHD_CONFIG)
@@ -207,19 +219,23 @@ def both():
 
 
 def test_examples_match(both):
-    """The port's host path (sort + its own planner) gives the JAX
-    package's example: same voxels, coordinates and rulebooks."""
+    """The port's host path (the linear-id sort) gives the JAX package's
+    example: same voxels and coordinates; the port's planner on them
+    gives the JAX package's rulebooks (the port's request ships none:
+    its device builds them)."""
     jctx, tctx, points = both
     jex = jctx.get_inference_input_dict({}, points)
     tex = tctx.get_inference_input_dict({}, points)
     for key in ("voxels", "coordinates", "num_points", "anchors"):
         np.testing.assert_array_equal(tex[key], jex[key], err_msg=key)
+    assert not any(k.startswith("plan_") for k in tex)
+    tplan = host_plan_of(tctx, tex)
     plan_keys = sorted(k for k in jex if k.startswith("plan_"))
-    assert plan_keys == sorted(k for k in tex if k.startswith("plan_"))
+    assert plan_keys == sorted(tplan)
     assert plan_keys, "the config must exercise the host planner"
     for key in plan_keys:
         np.testing.assert_array_equal(
-            tex[key], jex[key].astype(np.int32), err_msg=key)
+            tplan[key], jex[key].astype(np.int32), err_msg=key)
 
 
 def test_preds_match(both):

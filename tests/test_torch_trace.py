@@ -1,12 +1,13 @@
 """The port's stage spans and counts (``second_tpu_torch/utils/timer.py``)
 on the CPU, through ``InferenceContext`` on the tests' small car.fhd
-(host planner) and PointPillars configs, and through ``evaluate``.
+(host voxels sorted by linear id, rulebooks built on the device) and
+PointPillars configs, and through ``evaluate``.
 
 Off, nothing is kept and no profiler range opens; on, every request
 records each of its stages once, in program order and without nesting,
-all under its own id, with the bytes it uploads and the host plan's
-sparse rows; under ``torch.profiler`` the stages are ``user_annotation``
-ranges on the caller's thread.
+all under its own id, with the bytes it uploads and the sparse rows of
+the device's stage counts; under ``torch.profiler`` the stages are
+``user_annotation`` ranges on the caller's thread.
 """
 
 import json
@@ -28,7 +29,7 @@ from second_tpu_torch.utils import timer
 from test_torch_pointpillars import SMALL_PP_CONFIG, small_pp_points
 from test_torch_slice import SMALL_FHD_CONFIG, small_fhd_points
 
-HOST = {"fhd": ["prep.voxelize", "prep.plan", "prep.anchor_mask",
+HOST = {"fhd": ["prep.voxelize", "prep.anchor_mask", "prep.plan",
                 "prep.pack"],
         "pp": ["prep.voxelize", "prep.anchor_mask", "prep.pack"]}
 DEVICE = {"fhd": ["upload", "net.encode", "net.middle", "net.rpn",
@@ -96,9 +97,13 @@ def test_each_request_records_its_stages_once(contexts, model):
         host = example_convert(batch)
         assert counts["upload_bytes"] == sum(v.nbytes for v in host.values())
         if model == "fhd":
-            active = batch["sparse_active_counts"][0]
-            assert counts["sparse_rows_active"] == active[:, 0].sum()
-            assert counts["sparse_rows_capacity"] == active[:, 1].sum()
+            assert not any(k.startswith("plan_") for k in host)
+            # the device's stage counts, read again with collection off
+            was = timer.collect(False)
+            active = ctx._run(batch)[2].numpy()
+            timer.collect(was)
+            assert counts["sparse_rows_active"] == active[..., 0].sum()
+            assert counts["sparse_rows_capacity"] == active[..., 1].sum()
             assert counts["sparse_rows_active"] > 0
         else:
             assert set(counts) == {"upload_bytes"}
