@@ -39,9 +39,12 @@ records): ``get_inference_input_dict`` runs "prep.voxelize",
 "prep.anchor_mask" (in ``prep_pointcloud``), "prep.plan" (sparse
 middles on host voxels: the linear-id sort) and "prep.pack";
 ``inference`` runs "upload" (counting "upload_bytes"), "net.encode",
-"net.middle", "net.rpn" and "net.predict", and counts a sparse
-middle's "sparse_rows_active" / "sparse_rows_capacity" from the
-device's stage counts. With collection on, the batch carries its
+"net.middle", "net.rpn" (the multi-head network's heads inside it, as
+"net.heads") and "net.predict", and counts a sparse middle's
+"sparse_rows_active" / "sparse_rows_capacity" from the device's stage
+counts. A flat pillar request counts "points_shipped" (the in-range
+points ``pad_points`` kept) and "points_capacity" (the buffer's rows)
+on the host, in "prep.pack". With collection on, the batch carries its
 request's id under ``timer.REQUEST_KEY`` and both halves record under
 it.
 """
@@ -175,6 +178,8 @@ class InferenceContext:
                         self.points_capacity)
                     example["points"] = buf
                     example["points_count"] = np.array([count], np.int32)
+                    timer.count("points_shipped", count)
+                    timer.count("points_capacity", self.points_capacity)
                     for key in ("voxels", "num_points", "coordinates"):
                         del example[key]
                 example["metadata"] = input_dict["metadata"]

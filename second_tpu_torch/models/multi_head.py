@@ -115,13 +115,17 @@ class VoxelNetNuscenesMultiHead(VoxelNet):
 
     def rpn_preds(self, spatial):
         """The backbone on the BEV map [B, C, H, W], then both heads ->
-        preds [B, A, ...], large then small."""
+        preds [B, A, ...], large then small. The heads (the crop, both
+        heads, the concatenation) run in the span "net.heads" inside
+        "net.rpn", so the profiler's innermost span gives the backbone
+        to "net.rpn" and the heads to "net.heads"."""
         with timer.span("net.rpn"):
             rpn_out = self.rpn(spatial)
-            r1 = rpn_out["stage0"]
-            crop = int(np.round(r1.shape[2] * 0.1))
-            r1 = r1[:, :, crop:-crop, crop:-crop]
-            small = self.small_head(r1)
-            large = self.large_head(rpn_out["out"])
-            return {k: torch.cat([large[k], small[k]], dim=1)
-                    for k in large}
+            with timer.span("net.heads"):
+                r1 = rpn_out["stage0"]
+                crop = int(np.round(r1.shape[2] * 0.1))
+                r1 = r1[:, :, crop:-crop, crop:-crop]
+                small = self.small_head(r1)
+                large = self.large_head(rpn_out["out"])
+                return {k: torch.cat([large[k], small[k]], dim=1)
+                        for k in large}

@@ -1,13 +1,16 @@
 """The port's stage spans and counts (``second_tpu_torch/utils/timer.py``)
 on the CPU, through ``InferenceContext`` on the tests' small car.fhd
-(host voxels sorted by linear id, rulebooks built on the device) and
-PointPillars configs, and through ``evaluate``.
+(host voxels sorted by linear id, rulebooks built on the device),
+PointPillars and nuScenes multi-head configs, and through ``evaluate``.
 
 Off, nothing is kept and no profiler range opens; on, every request
-records each of its stages once, in program order and without nesting,
-all under its own id, with the bytes it uploads and the sparse rows of
-the device's stage counts; under ``torch.profiler`` the stages are
-``user_annotation`` ranges on the caller's thread.
+records each of its stages once, in program order and without nesting
+(but the multi-head network's ``net.heads``, inside ``net.rpn``), all
+under its own id, with the bytes it uploads, the sparse rows of the
+device's stage counts and, on the flat pillar path, the points shipped
+and the buffer's rows; under ``torch.profiler`` the stages are
+``user_annotation`` ranges on the caller's thread. Collection adds no
+host sync.
 """
 
 import json
@@ -15,6 +18,7 @@ import sys
 import threading
 from collections import Counter
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,6 +30,7 @@ from second_tpu_torch.tools import kitti_fixture as tfixture
 from second_tpu_torch.train.__main__ import evaluate, train
 from second_tpu_torch.utils import timer
 
+from benchmark.tests.small_mhead import small_frame, small_mhead_config
 from test_torch_pointpillars import SMALL_PP_CONFIG, small_pp_points
 from test_torch_slice import SMALL_FHD_CONFIG, small_fhd_points
 
@@ -106,7 +111,10 @@ def test_each_request_records_its_stages_once(contexts, model):
             assert counts["sparse_rows_capacity"] == active[..., 1].sum()
             assert counts["sparse_rows_active"] > 0
         else:
-            assert set(counts) == {"upload_bytes"}
+            assert set(counts) == {"upload_bytes", "points_shipped",
+                                   "points_capacity"}
+            assert counts["points_shipped"] == batch["points_count"][0, 0]
+            assert counts["points_capacity"] == ctx.points_capacity
     timer.reset()
     assert timer.snapshot() == {"spans": [], "counts": {}}
 
@@ -215,3 +223,88 @@ def test_evaluate_measure_time_logs_regions_and_stages(tmp_path, capsys):
                  "net.predict"):
         assert f"'{name}'" in line, name
     assert not timer.collecting()
+
+
+@pytest.fixture(scope="module")
+def mhead(tmp_path_factory):
+    """The nuScenes multi-head network on a small patch at its published
+    widths (random weights) and a frame of (x, y, z, time lag) points."""
+    cfg = small_mhead_config(tmp_path_factory.mktemp("mhead"))
+    ctx = InferenceContext()
+    ctx.build(cfg["repo_config"], device="cpu")
+    ctx.init_random(0)
+    return ctx, small_frame(cfg, np.random.default_rng(0))
+
+
+def test_heads_span_nests_in_rpn_once_a_request(mhead):
+    ctx, points = mhead
+    timer.collect(True)
+    batches = [ctx.get_inference_input_dict({"token": f"t{i}"}, points)
+               for i in range(2)]
+    for batch in batches:
+        ctx.inference(batch)
+    spans = timer.snapshot()["spans"]
+    for batch in batches:
+        mine = [s for s in spans if s.request == batch[timer.REQUEST_KEY]]
+        names = Counter(s.name for s in mine)
+        assert names["net.heads"] == 1 and names["net.rpn"] == 1
+        (rpn,) = [s for s in mine if s.name == "net.rpn"]
+        (heads,) = [s for s in mine if s.name == "net.heads"]
+        assert rpn.start_ns <= heads.start_ns <= heads.end_ns <= rpn.end_ns
+        assert heads.thread == rpn.thread
+
+
+@pytest.mark.parametrize("model", ["fhd", "pp"])
+def test_no_heads_span_on_rpnv2(contexts, model):
+    timer.collect(True)
+    _request(contexts[model], POINTS[model]())
+    names = {s.name for s in timer.snapshot()["spans"]}
+    assert "net.rpn" in names and "net.heads" not in names
+
+
+@pytest.mark.parametrize("model", ["fhd", "pp", "mhead"])
+def test_points_counted_on_flat_pillar_requests_only(contexts, mhead,
+                                                     model):
+    if model == "mhead":
+        ctx, points = mhead
+        info = {"token": "t"}
+    else:
+        ctx, points, info = contexts[model], POINTS[model](), {}
+    timer.collect(True)
+    batch = ctx.get_inference_input_dict(info, points)
+    counts = timer.snapshot()["counts"].get(batch[timer.REQUEST_KEY], {})
+    if model == "fhd":
+        assert "points_shipped" not in counts
+        assert "points_capacity" not in counts
+    else:
+        assert counts["points_shipped"] == batch["points_count"][0, 0] > 0
+        assert counts["points_capacity"] == ctx.points_capacity == (
+            batch["points"].shape[1])
+
+
+def test_collection_adds_no_host_sync(contexts, mhead, monkeypatch):
+    """The same calls that read a tensor back to the host (``item``,
+    ``tolist``, ``cpu``, ``numpy``, truth values) with collection on as
+    with it off, on the multi-head and PointPillars requests."""
+    calls = Counter()
+    for name in ("item", "tolist", "cpu", "numpy", "__bool__",
+                 "__int__", "__float__"):
+        inner = getattr(torch.Tensor, name)
+
+        def wrapped(self, *a, _inner=inner, _name=name, **k):
+            calls[_name] += 1
+            return _inner(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, wrapped)
+    ctx, points = mhead
+    runs = [(ctx, points, {"token": "t"}),
+            (contexts["pp"], POINTS["pp"](), {})]
+    seen = {}
+    for on in (False, True):
+        timer.collect(on)
+        calls.clear()
+        for c, pts, info in runs:
+            c.inference(c.get_inference_input_dict(info, pts))
+        seen[on] = dict(calls)
+    assert seen[True] == seen[False]
+    assert timer.snapshot()["spans"]
