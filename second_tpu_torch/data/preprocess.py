@@ -20,6 +20,7 @@ import numpy as np
 
 from ..core import box_ops
 from ..core import preprocess as prep
+from ..native import host_ops
 from ..utils import timer
 from . import kitti_common as kitti
 
@@ -42,21 +43,20 @@ def pad_points(points, pc_range, capacity, dtype=np.float32):
     buffer (a raw KITTI scan holds ~120k points). Past the capacity the
     later points are dropped, with a warning attributed to the caller of
     the caller (``prep_pointcloud``'s or the request path's).
+
+    One native pass (``native.host_ops.pad_points``) reads each row once;
+    the comparison runs in the dtype NumPy would promote ``points`` and
+    ``pc_range`` to, so a point on a face, or a NaN, lands where
+    ``np.all((xyz >= lo) & (xyz < hi), axis=1)`` puts it.
     """
-    in_range = np.all(
-        (points[:, :3] >= pc_range[:3]) & (points[:, :3] < pc_range[3:]),
-        axis=1)
-    points = points[in_range]
-    count = min(len(points), capacity)
-    if len(points) > capacity:
+    buf, total = host_ops.pad_points(points, pc_range, capacity, dtype)
+    if total > capacity:
         warnings.warn(
-            f"emit_points buffer overflow: {len(points)} in-range "
+            f"emit_points buffer overflow: {total} in-range "
             f"points > capacity {capacity}; "
-            f"{len(points) - capacity} dropped (raise emit_points)",
+            f"{total - capacity} dropped (raise emit_points)",
             stacklevel=3)
-    buf = np.zeros((capacity, points.shape[1]), dtype)
-    buf[:count] = points[:count]
-    return buf, count
+    return buf, min(total, capacity)
 
 
 def sort_by_linear_id(example, shape):

@@ -9,6 +9,7 @@
 //   * points_to_voxel: first-come-first-serve voxelization
 //     (reference spconv VoxelGeneratorV2 semantics, called from
 //     second/data/preprocess.py:302-315).
+//   * pad_points: the flat pillar path's range filter and padding.
 //   * iou_matrix, noise_per_box: the augmentation's hot loops.
 //   * subm_plan, down_plan: the sparse-conv rulebooks.
 //
@@ -224,6 +225,68 @@ int64_t points_to_voxel(const float* points, int64_t num_points,
     coor_to_voxelidx[cz * (ny * nx) + cy * nx + cx] = -1;
   }
   return voxel_num;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// range filter + padding of the flat pillar path's point buffer
+// ---------------------------------------------------------------------------
+
+// One pass over points [n, f]: a row is kept when lo <= xyz < hi on all
+// three axes, compared in Cmp (NaN fails every comparison, so it is
+// dropped; the & keeps the six tests free of branches). Kept rows are
+// copied in order into out [capacity, f] until it is full; the count runs
+// on. The rows past the copied ones are zeroed. Returns the in-range count.
+template <typename In, typename Cmp, typename Out>
+static int64_t pad_rows(const In* points, int64_t n, int64_t f,
+                        const double* range, Out* out, int64_t capacity) {
+  const Cmp lo0 = (Cmp)range[0], lo1 = (Cmp)range[1], lo2 = (Cmp)range[2];
+  const Cmp hi0 = (Cmp)range[3], hi1 = (Cmp)range[4], hi2 = (Cmp)range[5];
+  int64_t kept = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const In* p = points + i * f;
+    const Cmp x = p[0], y = p[1], z = p[2];
+    const bool in = (x >= lo0) & (x < hi0) & (y >= lo1) & (y < hi1) &
+                    (z >= lo2) & (z < hi2);
+    if (!in) continue;
+    if (kept < capacity) {
+      Out* o = out + kept * f;
+      for (int64_t j = 0; j < f; ++j) o[j] = (Out)p[j];
+    }
+    ++kept;
+  }
+  const int64_t rows = std::min(kept, capacity);
+  std::memset(out + rows * f, 0, sizeof(Out) * (capacity - rows) * f);
+  return kept;
+}
+
+template <typename In, typename Cmp>
+static int64_t pad_rows_to(const In* points, int64_t n, int64_t f,
+                           const double* range, void* out, int32_t out_f64,
+                           int64_t capacity) {
+  if (out_f64)
+    return pad_rows<In, Cmp, double>(points, n, f, range, (double*)out,
+                                     capacity);
+  return pad_rows<In, Cmp, float>(points, n, f, range, (float*)out, capacity);
+}
+
+extern "C" {
+
+// points [n, f >= 3] float32 (in_f64 = 0) or float64 rows; range [6] the
+// (x, y, z) minima then maxima; cmp_f64 compares in double, else in float
+// (float rows only); out [capacity, f] float32 or float64 (out_f64).
+int64_t pad_points(const void* points, int64_t n, int64_t f, int32_t in_f64,
+                   const double* range, int32_t cmp_f64, void* out,
+                   int32_t out_f64, int64_t capacity) {
+  if (in_f64)
+    return pad_rows_to<double, double>((const double*)points, n, f, range,
+                                       out, out_f64, capacity);
+  if (cmp_f64)
+    return pad_rows_to<float, double>((const float*)points, n, f, range, out,
+                                      out_f64, capacity);
+  return pad_rows_to<float, float>((const float*)points, n, f, range, out,
+                                   out_f64, capacity);
 }
 
 }  // extern "C"
