@@ -1809,10 +1809,13 @@ def fhd_step_checks(config, root, device, device_route=False, label=None,
                f"active per stage {batch['sparse_active_counts'].tolist()}")
     positives = (batch["pos_count"][:, 0] if device_route
                  else (batch["labels"] > 0).sum(1)).tolist()
+    # a points batch without an anchor mask has no host voxels to count
+    voxels = (f"voxels {batch['num_voxels'][:, 0].tolist()}, "
+              if "num_voxels" in batch else "")
     log(f"{label} sampled batch: {[len(f['gt_names']) for f in frames]} "
         f"boxes after sampling (the frames' own {own}), positive anchors "
-        f"{positives}, host preparation {ms:.3f} ms per frame, voxels "
-        f"{batch['num_voxels'][:, 0].tolist()}, {shipped}")
+        f"{positives}, host preparation {ms:.3f} ms per frame, {voxels}"
+        f"{shipped}")
     batch1 = {k: v[:1] for k, v in batch.items()
               if isinstance(v, np.ndarray)}
     loss_d = _loss_of(parts["net"], parts["spec"],
@@ -2810,8 +2813,7 @@ def nusc_requests(ctx, dataset):
             f"{len(points)} points of 10 sweeps, {shipped} shipped of "
             f"{ctx.route.points_capacity} ({in_range} in range; overflow "
             f"warnings "
-            f"{overflow}), {int(example['num_voxels'][0, 0])} pillars on "
-            f"the host, {len(boxes)} detections {per_class}, host prep "
+            f"{overflow}), {len(boxes)} detections {per_class}, host prep "
             f"{(t1 - t0) * 1e3:.3f} ms, device inference "
             f"{(t2 - t1) * 1e3:.3f} ms, total {(t2 - t0) * 1e3:.3f} ms")
     launches = read_launches("nusc_mhead")

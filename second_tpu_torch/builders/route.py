@@ -62,7 +62,12 @@ class Route:
 
     ships_points: the example ships "points" [points_capacity, F] and
         "points_count" instead of "voxels", "num_points" and
-        "coordinates".
+        "coordinates". Such a route voxelizes on the host only where
+        the reader sets an anchor mask (``anchor_area_threshold >= 0``,
+        PointPillars), whose summed-area table reads the host voxels'
+        coordinates; its example keeps "num_voxels". Without the mask
+        nothing reads host voxels, so ``prep_pointcloud`` makes none and
+        the example ships no "num_voxels".
     flat_pp: the device runs the flat pillar path on those points.
     plan_scales: ``models.sparse_middle.plan_scales`` where the example
         carries the C++ planner's rulebooks, else None.

@@ -28,8 +28,10 @@ the example ships the points inside the range, padded to the eval
 reader's ``points_capacity`` rows (``data.preprocess.pad_points``, as
 training ships them: 32768 for KITTI, 393216 for nuScenes' 10 sweeps),
 instead of the voxels, and the device pillarizes them. The host still
-voxelizes once, for the anchor mask. The nuScenes multi-head network
-runs this path too (its ``rpn_preds`` applies both heads).
+voxelizes once where the reader sets an anchor mask (PointPillars),
+and not at all where it sets none. The nuScenes multi-head network
+runs this path too (its ``rpn_preds`` applies both heads), without a
+mask.
 
 ``get_inference_input_dict`` takes a KITTI info (image index and
 calibration) or a nuScenes one (its sample ``token``, no image or

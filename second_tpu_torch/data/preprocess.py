@@ -154,8 +154,11 @@ def prep_pointcloud(input_dict,
     ("points" [emit_points, F], the in-range points padded by
     :func:`pad_points`, + "points_count") INSTEAD of the padded voxel
     buffer, for models that voxelize on the device (the PointPillars
-    family). Host voxelization still runs, for anchors_mask; exclusive
-    with sparse_plan_scales (the planner needs host voxels).
+    family). The host voxelizer then runs only for the anchor mask
+    (``anchor_area_threshold >= 0``), and the example keeps its
+    "num_voxels"; without the mask nothing reads host voxels, so none
+    are made and "num_voxels" is not shipped. Exclusive with
+    sparse_plan_scales (the planner needs host voxels).
 
     compact_targets: ship per-anchor labels as int8 plus ONLY the
     positive anchors' regression targets ("pos_idx"/"pos_targets"/
@@ -169,7 +172,8 @@ def prep_pointcloud(input_dict,
     rulebooks, "prep.anchor_mask" for the anchors and their mask; the
     shipped points and the buffer's rows count as "points_shipped" /
     "points_capacity", the planner's summed (true_active, capacity) as
-    "sparse_rows_active" / "sparse_rows_capacity".
+    "sparse_rows_active" / "sparse_rows_capacity", and "host_voxelized"
+    counts 1 where the host voxelizer ran, else 0.
     """
     if quantize_points:
         raise NotImplementedError(
@@ -298,24 +302,30 @@ def prep_pointcloud(input_dict,
         pc_range = voxel_generator.point_cloud_range
         grid_size = voxel_generator.grid_size
 
-        res = voxel_generator.generate_multi_gpu(points, max_voxels)
-        voxels = res["voxels"].astype(out_dtype)
-        coordinates = res["coordinates"].copy()
-        num_points = res["num_points_per_voxel"]
-        num_voxels = int(res["voxel_num"])
-        # -1-pad the empty coordinate rows (static-shape validity marker)
-        coordinates[num_voxels:] = -1
-
-        example = {
-            "voxels": voxels,
-            "num_points": num_points,
-            "coordinates": coordinates,
-            "num_voxels": np.array([num_voxels], dtype=np.int64),
-        }
+        assert not (emit_points and sparse_plan_scales is not None), (
+            "emit_points is for device-voxelizing models; the sparse "
+            "middle family needs host voxels for the rulebook planner")
+        # the host voxels are read by a voxel route and by the anchor
+        # mask; a points route without the mask ships and reads none
+        host_voxels = not emit_points or anchor_area_threshold >= 0
+        timer.count("host_voxelized", int(host_voxels))
+        example = {}
+        if host_voxels:
+            res = voxel_generator.generate_multi_gpu(points, max_voxels)
+            voxels = res["voxels"].astype(out_dtype)
+            coordinates = res["coordinates"].copy()
+            num_points = res["num_points_per_voxel"]
+            num_voxels = int(res["voxel_num"])
+            # -1-pad the empty coordinate rows (static-shape validity
+            # marker)
+            coordinates[num_voxels:] = -1
+            example = {
+                "voxels": voxels,
+                "num_points": num_points,
+                "coordinates": coordinates,
+                "num_voxels": np.array([num_voxels], dtype=np.int64),
+            }
         if emit_points:
-            assert sparse_plan_scales is None, (
-                "emit_points is for device-voxelizing models; the sparse "
-                "middle family needs host voxels for the rulebook planner")
             buf, count = pad_points(points, pc_range, emit_points, out_dtype)
             example["points"] = buf
             example["points_count"] = np.array([count], np.int32)
@@ -323,9 +333,8 @@ def prep_pointcloud(input_dict,
             timer.count("points_capacity", emit_points)
             # the padded voxel buffer is ~100x the points' bytes; the
             # device re-voxelizes inside the train step
-            del example["voxels"]
-            del example["num_points"]
-            del example["coordinates"]
+            for key in ("voxels", "num_points", "coordinates"):
+                example.pop(key, None)
         if sparse_plan_scales is not None:
             timer.stage("prep.plan")
             # host-built rulebooks need voxels sorted by linear id

@@ -13,6 +13,9 @@ benchmark's published sizes.
   dtypes, shapes and upload bytes exactly, and for car_fhd and
   pointpillars on two sweeps of the ``sweep`` mix, the plain
   reference's host arrays exactly (``benchmark/reference``).
+* The host voxelizer runs only where something reads its voxels: a
+  points example without an anchor mask skips it and ships no
+  "num_voxels"; PointPillars' mask and a voxel route keep it.
 * Serving loads nothing of the training package.
 """
 
@@ -27,11 +30,13 @@ import torch
 from benchmark import common
 from benchmark.gen import nusc_scenes, scenes
 from benchmark.reference import judge, pipeline
+from second_tpu.data.preprocess import prep_pointcloud as jprep
 from second_tpu_torch.builders.dataset_builder import build_prep_func
 from second_tpu_torch.builders.network_builder import build_network
 from second_tpu_torch.builders.route import make_route, points_capacity
 from second_tpu_torch.configs import load_pipeline_config, schema
 from second_tpu_torch.core.inference import InferenceContext, example_convert
+from second_tpu_torch.utils import timer
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = {"car.fhd": "configs/car.fhd.config",
@@ -176,8 +181,7 @@ HOST_BATCH = {
                       "anchors_mask": ("bool", (1, 107136)),
                       "points": ("float32", (1, 32768, 4)),
                       "points_count": ("int32", (1, 1))}, 3631236),
-    "nusc_mhead": ({"num_voxels": ("int64", (1, 1)),
-                    "anchors": ("float32", (1, 1124000, 7)),
+    "nusc_mhead": ({"anchors": ("float32", (1, 1124000, 7)),
                     "points": ("float32", (1, 393216, 4)),
                     "points_count": ("int32", (1, 1))}, 37763460),
 }
@@ -209,6 +213,85 @@ def test_request_host_batch(name):
         if name != "nusc_mhead":
             ref, _ = pipeline.host_example(cfg["model"], points)
             assert judge.prep_mismatch(ex, ref) == 0
+
+
+# (config, use, device_voxelize) -> whether the host voxelizer runs: a
+# points route reads host voxels only for the anchor mask, a voxel
+# route ships them
+HOST_VOXELIZER = {
+    "mhead request": ("mhead", "request", "auto", False),
+    "car.fhd points train": ("car.fhd", "train", True, False),
+    "xyres_16 request": ("xyres_16", "request", "auto", True),
+    "car.fhd voxel request": ("car.fhd", "request", False, True),
+}
+
+
+def _prep_counted(prep, use, **kwargs):
+    """``prep`` of ``_input(use)`` at np.random seed 0, as one request
+    with collection on: (the example, its counts)."""
+    was = timer.collect(True)
+    timer.reset()
+    try:
+        rid = timer.new_request()
+        with timer.request(rid):
+            np.random.seed(0)
+            example = prep(input_dict=_input(use), **kwargs)
+        return example, timer.snapshot()["counts"].get(rid, {})
+    finally:
+        timer.collect(was)
+        timer.reset()
+
+
+@pytest.mark.parametrize("case", sorted(HOST_VOXELIZER))
+def test_host_voxelizer_runs_only_where_read(nets, case, monkeypatch):
+    """A points route without an anchor mask never calls the host
+    voxelizer, counts 0 under "host_voxelized" and ships no
+    "num_voxels"; its points, counts and anchors are those of the same
+    prep with the mask on (threshold 0, which voxelizes) bit for bit.
+    PointPillars' mask and a voxel route call it once, count 1, and give
+    the JAX package's example key for key."""
+    name, use, device_voxelize, voxelizes = HOST_VOXELIZER[case]
+    cfg, parts = nets[name]
+    reader = cfg.train_input_reader if use == "train" else (
+        cfg.eval_input_reader)
+    route = make_route(parts, reader, use, device_voxelize)
+    prep = build_prep_func(reader, parts, training=use == "train",
+                           route=route)
+    assert (prep.keywords["anchor_area_threshold"] >= 0) == (
+        route.ships_points and voxelizes)
+    np.random.seed(0)
+    jex = jprep(input_dict=_input(use), **prep.keywords)
+    masked, masked_counts = _prep_counted(prep, use,
+                                          anchor_area_threshold=0)
+    assert masked_counts["host_voxelized"] == 1
+
+    gen = parts["voxel_generator"]
+    calls = []
+
+    def generate_multi_gpu(*args, **kwargs):
+        calls.append(args)
+        if not voxelizes:
+            raise AssertionError("the host voxelizer ran")
+        return type(gen).generate_multi_gpu(gen, *args, **kwargs)
+
+    monkeypatch.setattr(gen, "generate_multi_gpu", generate_multi_gpu)
+    example, counts = _prep_counted(prep, use)
+    monkeypatch.undo()
+    assert len(calls) == int(voxelizes)
+    assert counts["host_voxelized"] == int(voxelizes)
+    # the JAX package's example carries its timings under "metrics"
+    want = set(jex) - {"metrics"} - (set() if voxelizes else {"num_voxels"})
+    assert set(example) == want
+    for key in sorted(want - {"gt_names"}):
+        np.testing.assert_array_equal(example[key], np.asarray(jex[key]),
+                                      err_msg=key)
+        assert example[key].dtype == np.asarray(jex[key]).dtype, key
+    if not voxelizes:
+        assert set(masked) - set(example) == {"num_voxels", "anchors_mask"}
+        for key in ("points", "points_count", "anchors"):
+            assert example[key].dtype == masked[key].dtype, key
+            np.testing.assert_array_equal(example[key], masked[key],
+                                          err_msg=key)
 
 
 def test_serving_loads_nothing_of_training():

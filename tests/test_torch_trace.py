@@ -99,6 +99,9 @@ def test_each_request_records_its_stages_once(contexts, model):
         for a, b in zip(spans, spans[1:]):
             assert a.start_ns <= a.end_ns <= b.start_ns
         counts = snap["counts"][rid]
+        # both voxelize on the host: car.fhd ships voxels, PointPillars'
+        # anchor mask reads them
+        assert counts["host_voxelized"] == 1
         host = example_convert(batch)
         assert counts["upload_bytes"] == sum(v.nbytes for v in host.values())
         if model == "fhd":
@@ -112,7 +115,7 @@ def test_each_request_records_its_stages_once(contexts, model):
             assert counts["sparse_rows_active"] > 0
         else:
             assert set(counts) == {"upload_bytes", "points_shipped",
-                                   "points_capacity"}
+                                   "points_capacity", "host_voxelized"}
             assert counts["points_shipped"] == batch["points_count"][0, 0]
             assert counts["points_capacity"] == ctx.route.points_capacity
     timer.reset()
