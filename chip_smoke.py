@@ -171,6 +171,18 @@ trees of phases 9 and 10 have one. Phases, each printed as it runs:
      10 classes' kitti-style AP); the device voxelizer with
      ``full_empty_part_with_mean`` against the host voxelizer on frame
      0;
+ 14b. the nuScenes residual sparse SECOND (``nusc_res8x``,
+     ``configs/nuscenes/all.res8x.config``) at its published grid and
+     widths (random weights from seed 0, batch norms as in phase 14):
+     one request of a ``benchmark/gen/nusc_scenes.py`` frame (a key
+     frame and 9 sweeps of 34 720 points) on the voxel route, its K1
+     count zeroed just before ``inference``: 21 K1 launches (every
+     sparse conv), K3 and K4 launched, no plain gather and no
+     ``conv3d``, no warning, the detections per class; then each of the
+     request's 6 convs above 64 channels (conv4, its blocks, conv_out)
+     on its own features and rulebook, K1 against ``gather_gemm_plain``
+     (phase 2's tolerance), two calls bitwise equal, its ms beside its
+     bound;
  15. car.fhd fine-tuning (``finetune``) on phase 10's 16-frame tree at
      the published width (batch 8, the sampler on): an upstream
      ``.tckpt`` from ``tools/upstream_fixture.py`` (seed 0) through
@@ -230,13 +242,14 @@ times the wrapper,
 are sums over the inference frame's 10 sparse convs, K2's over the
 training batch's 10; ``bound_ms`` is the fp32 bound and
 ``bound_tf32x3_ms`` the 3xTF32 one; K1's ``max_abs_err`` is its largest over phases 2
-and 6; K4's ``pp_candidates`` holds phase 8's numbers; ``launches`` count
+and 6, and its ``wide`` holds phase 14b's 128-channel convs (summed
+like the rest); K4's ``pp_candidates`` holds phase 8's numbers; ``launches`` count
 the main paths' runs, phases 3, 7, 8, 9 and 10's train() and evaluate()
 runs and phases 11, 12 and 14's requests, train() and evaluate() runs,
-and phase 15's request, train(), evaluate() and viewer runs, and
+phase 14b's request, and phase 15's request, train(), evaluate() and viewer runs, and
 phase 16's ranks,
 with ``launches_by_path`` splitting them, phase 13's as ``bf16``,
-phase 14's as ``nusc_mhead``, phase 15's as ``finetune`` and phase 16's
+phase 14's as ``nusc_mhead``, phase 14b's as ``nusc_res8x``, phase 15's as ``finetune`` and phase 16's
 as ``ddp``;
 ``proof_launches``
 counts the three learning proofs apart), and as the last line
@@ -265,6 +278,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from benchmark.gen import nusc_scenes
 from second_tpu_torch import script
 from second_tpu_torch.builders import voxel_builder
 from second_tpu_torch.builders.dataset_builder import build_prep_func
@@ -324,6 +338,7 @@ from second_tpu_torch.ops import (
     losses,
 )
 from second_tpu_torch.ops import launch_counts
+from second_tpu_torch.ops import sparse as sparse_ops
 from second_tpu_torch.ops.nms import candidate_iou
 from second_tpu_torch.ops.sparse import (
     SparseConvFunction,
@@ -455,6 +470,14 @@ MHEAD_CONFIG = "configs/nuscenes/all.pp.mhead.config"
 NUSC_FRAMES = 8
 NUSC_TRAIN_STEPS = 6
 NUSC_RESUME_STEPS = 2
+# the nuScenes residual sparse SECOND (phase 14b): one request of a
+# generator frame (a key frame and 9 sweeps of 34 720 points, 5 objects
+# of each class) runs each of the middle's 21 sparse convs as one K1
+# launch (conv_input, 8 residual blocks of 2, 4 strided), 6 of them on
+# K1's 128-wide instantiations (conv4 64 -> 128, its blocks, conv_out)
+RES8X_CONFIG = "configs/nuscenes/all.res8x.config"
+RES8X_SPARSE_CONVS = 21
+RES8X_WIDE_CONVS = 6
 ZOO_GRAD_L2_TOL = 1e-4
 
 # mixed precision (phase 13): each model's bf16 preds against its f32
@@ -581,6 +604,9 @@ PATH_KERNELS = {
     # phase 14: the nuScenes mhead's requests, train() evals and
     # evaluate() (standup NMS: K4; K3 where a config rotates it)
     "nusc_mhead": ("greedy_nms",),
+    # phase 14b: one request of the nuScenes residual network (rotated
+    # NMS), its 128-channel convs on K1's wide instantiations
+    "nusc_res8x": ("sparse_conv_gather_gemm", "rotated_iou", "greedy_nms"),
     # phase 15: the imported checkpoint's request, run A's train() steps
     # and evals, run B's frozen steps (K2 never), the tools' evals and the
     # viewer's requests
@@ -2977,6 +3003,124 @@ def phase_nusc_mhead(device, work):
     return launches
 
 
+def phase_nusc_res8x(device):
+    """Phase 14b: the nuScenes residual sparse SECOND
+    (``configs/nuscenes/all.res8x.config``) at its published grid and
+    widths, one generator frame through ``InferenceContext``. Returns
+    the kernel launches of its request and K1's numbers at 128 channels
+    on that request's own features and rulebooks."""
+    t_phase = time.perf_counter()
+    ctx = _f32_ctx(RES8X_CONFIG, device)
+    mid = ctx.parts["net"].middle_feature_extractor
+    check(type(mid).__name__ == "SpMiddleResNetFHD"
+          and ctx.route.sort_shape is not None and not ctx.route.ships_points,
+          f"nusc res8x: {type(mid).__name__} off the voxel route")
+    points = nusc_scenes.make_frame(np.random.default_rng([23, 1, 0]),
+                                    34720, 5)[0]
+    names = ctx.parts["target_assigner"].classes
+    # the first request builds the kernels
+    ctx.inference(ctx.get_inference_input_dict({"token": "warm"}, points))
+    wide, plain, conv3d = [], [], []
+    inner_gemm = sparse_ops.gather_gemm
+    inner_plain = cuda_sparse_conv.gather_gemm_plain
+    inner_3d = torch.nn.functional.conv3d
+
+    def gemm(feat, slots, weight, bias=None):
+        if weight.shape[-1] > cuda_sparse_conv.NARROW_MAX:
+            wide.append([t.detach().clone() if t is not None else None
+                         for t in (feat, slots, weight, bias)])
+        return inner_gemm(feat, slots, weight, bias)
+
+    sparse_ops.gather_gemm = gemm
+    cuda_sparse_conv.gather_gemm_plain = (
+        lambda *a, **k: plain.append(1) or inner_plain(*a, **k))
+    torch.nn.functional.conv3d = (
+        lambda *a, **k: conv3d.append(1) or inner_3d(*a, **k))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            example = ctx.get_inference_input_dict({"token": "res8x"},
+                                                   points)
+        t1 = time.perf_counter()
+        reset_launches()
+        dets = ctx.inference(example)[0]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = read_launches("nusc_res8x")
+    finally:
+        sparse_ops.gather_gemm = inner_gemm
+        cuda_sparse_conv.gather_gemm_plain = inner_plain
+        torch.nn.functional.conv3d = inner_3d
+    k1 = launches["sparse_conv_gather_gemm"]
+    check(k1 == RES8X_SPARSE_CONVS,
+          f"nusc res8x: {k1} K1 launches a request, not "
+          f"{RES8X_SPARSE_CONVS}")
+    check(len(wide) == RES8X_WIDE_CONVS,
+          f"nusc res8x: {len(wide)} convs above 64 channels, not "
+          f"{RES8X_WIDE_CONVS}")
+    check(not plain and not conv3d,
+          f"nusc res8x: {len(plain)} plain gathers, {len(conv3d)} conv3d")
+    check(not rec, f"nusc res8x: warnings {[str(w.message) for w in rec]}")
+    boxes, labels = dets["box3d_lidar"], dets["label_preds"]
+    check(boxes.ndim == 2 and boxes.shape[1] == 7 and len(boxes) > 0
+          and np.isfinite(boxes).all(), "nusc res8x: bad boxes")
+    per_class = {names[c]: int((labels == c).sum())
+                 for c in range(len(names))}
+    log(f"nusc res8x: {len(points)} points of 10 sweeps, "
+        f"{int(example['num_voxels'][0])} voxels, "
+        f"{ctx.parts['anchor_cache']['anchors'].shape[0]} anchors; "
+        f"{len(boxes)} detections {per_class}; launches {launches}; host "
+        f"prep {(t1 - t0) * 1e3:.3f} ms, device inference "
+        f"{(t2 - t1) * 1e3:.3f} ms")
+
+    errs, k_ms, d_ms, p_ms, b_ms, t_ms = [], 0.0, 0.0, 0.0, {}, 0.0
+    for i, (feat, slots, w, bias) in enumerate(wide):
+        b, vin, cin = feat.shape
+        k, _, cout = w.shape
+        out = cuda_sparse_conv.gather_gemm(feat, slots, w, bias)
+        ref = cuda_sparse_conv.gather_gemm_plain(feat, slots, w, bias)
+        err = (out - ref).abs().max().item()
+        tol = K1_TOL * max(1.0, ref.abs().max().item())
+        check(err <= tol, f"K1 wide conv {i}: max err {err} > {tol}")
+        check(torch.equal(out, cuda_sparse_conv.gather_gemm(
+            feat, slots, w, bias)), f"K1 wide conv {i}: two calls differ")
+        cb, co = gather_conv_bound(b, vin, cin, slots, cout, False)
+        cms, cby = bound_ms(cb, co)
+        tms = tf32x3_bound_ms(cb, co)
+        kms = cuda_ms(lambda: cuda_sparse_conv.gather_gemm(
+            feat, slots, w, bias))
+        dms = graph_ms(lambda: cuda_sparse_conv.gather_gemm(
+            feat, slots, w, bias))
+        pms = cuda_ms(lambda: cuda_sparse_conv.gather_gemm_plain(
+            feat, slots, w, bias), iters=5, warmup=1)
+        errs.append(err)
+        k_ms += kms
+        d_ms += dms
+        p_ms += pms
+        b_ms[cby] = b_ms.get(cby, 0.0) + cms
+        t_ms += tms
+        log(f"K1 wide conv {i}: rows ({vin}, {cin}) -> "
+            f"{tuple(slots.shape[1:])} x {cout}, max err {err:.3e} "
+            f"(tolerance {tol:.3e}), two calls bitwise equal, kernel "
+            f"{kms:.4f} ms (device {dms:.4f}), plain {pms:.4f} ms, bound "
+            f"fp32 {cms:.4f} ms ({cby}) / 3xTF32 {tms:.4f} ms; "
+            f"{co / 1e9:.3f} GFLOP of hits at {co / kms / 1e9:.3f} "
+            f"TFLOP/s; {skips(tile_stats(slots, vin))}")
+    results = {"convs": len(wide), "max_abs_err": max(errs), "ms": k_ms,
+               "device_ms": d_ms, "plain_ms": p_ms,
+               "bound_ms": sum(b_ms.values()),
+               "bound_by": max(b_ms, key=b_ms.get),
+               "bound_tf32x3_ms": t_ms}
+    log(f"K1 at 128 channels, the request's {len(wide)} convs: kernel "
+        f"{k_ms:.4f} ms (device {d_ms:.4f}), plain {p_ms:.4f} ms, bound "
+        f"fp32 {results['bound_ms']:.4f} ms / 3xTF32 {t_ms:.4f} ms "
+        f"({card_name()})")
+    log(f"phase 14b (nusc_res8x): {time.perf_counter() - t_phase:.3f} s")
+    return launches, results
+
+
 def card_name():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -3752,6 +3896,8 @@ def main():
         launches["bf16"], results["sparse_conv_gather_gemm_bf16"] = (
             phase_bf16(ctx, device, work, pp_root, root))
         launches["nusc_mhead"] = phase_nusc_mhead(device, work / "nusc_mhead")
+        launches["nusc_res8x"], results["sparse_conv_gather_gemm"]["wide"] = (
+            phase_nusc_res8x(device))
         launches["finetune"] = phase_finetune(device, work / "finetune", root)
         launches["ddp"] = phase_ddp(device, work / "ddp", root)
         proofs = phase_proofs(work / "proofs")

@@ -42,9 +42,11 @@ records): ``get_inference_input_dict`` runs "prep.voxelize",
 "prep.anchor_mask" (in ``prep_pointcloud``), "prep.plan" (sparse
 middles on host voxels: the linear-id sort) and "prep.pack";
 ``inference`` runs "upload" (counting "upload_bytes"), "net.encode",
-"net.middle", "net.rpn" (the multi-head network's heads inside it, as
-"net.heads") and "net.predict", and counts a sparse middle's
-"sparse_rows_active" / "sparse_rows_capacity" from the device's stage
+"net.middle" (a middle's stage above 64 channels inside it, as
+"net.middle.wide"), "net.rpn" (the multi-head network's heads inside
+it, as "net.heads") and "net.predict", and counts a sparse middle's
+"sparse_rows_active" / "sparse_rows_capacity" / "sparse_rows_overflow"
+(the active sites beyond a stage's capacity) from the device's stage
 counts. A request that ships points counts "points_shipped" (the
 in-range points ``pad_points`` kept) and "points_capacity" (the
 buffer's rows) on the host, in "prep.voxelize". With collection on,
@@ -196,8 +198,10 @@ class InferenceContext:
     def inference(self, example):
         """Returns ragged per-frame detection dicts. A sparse middle's
         stage counts follow the detections to the host: they count as
-        the request's "sparse_rows_active" / "sparse_rows_capacity", and
-        a stage that dropped voxels warns, as the host planner does."""
+        the request's "sparse_rows_active" / "sparse_rows_capacity" /
+        "sparse_rows_overflow" (the sites each stage dropped, summed),
+        and a stage that dropped voxels warns, as the host planner
+        does."""
         _, dets, active = self._run(example)
         dets = {k: v.cpu().numpy() for k, v in dets.items()}
         if active is not None:
@@ -206,6 +210,9 @@ class InferenceContext:
                 timer.count("sparse_rows_active", int(active[..., 0].sum()))
                 timer.count("sparse_rows_capacity",
                             int(active[..., 1].sum()))
+                if timer.collecting():
+                    timer.count("sparse_rows_overflow", int(np.maximum(
+                        active[..., 0] - active[..., 1], 0).sum()))
             for i, (total, cap) in enumerate(active.max(0)):
                 if total > cap:
                     warn_overflow(i, int(total), int(cap))

@@ -46,6 +46,13 @@
 //   * Cin and Cout are padded to the MMA widths (8, 16, 32, 64) in shared
 //     memory with zeros; shared-memory strides keep every fragment read
 //     free of bank conflicts.
+//   * Cout = 128 (the residual nuScenes middle's 64 -> 128 and 128 -> 128
+//     convs) splits its columns over two blocks of 64, neighbours in the
+//     grid so that both gather the tile's rows while L2 holds them: a
+//     block keeping all 128 columns would hold 128 accumulators, 128
+//     products and a 128-wide W[k] in registers (they spill), and its
+//     split W[k] alone would take 132 KB of shared memory at Cin = 128.
+//     Only (64, 128) and (128, 128) are instantiated.
 // No atomics; every output element is summed in a fixed order (offsets
 // ascending, then Cin), so two calls give bitwise-equal results.
 
@@ -61,20 +68,27 @@ constexpr int THREADS = WARPS * 32;
 constexpr int STAGES = 2;  // gathered-row stages
 constexpr int HEADER_BYTES = 64;  // per-warp offset masks, 16-byte aligned
 
+constexpr int MAX_CT = 64;  // a block's columns at most
+
 template <int CIN_P, int COUT_P>
 struct Shape {
+  // the block's columns: all of Cout up to 64, else a slice of 64
+  static constexpr int CT = COUT_P < MAX_CT ? COUT_P : MAX_CT;
+  static constexpr bool WIDE = COUT_P > MAX_CT;
+  static constexpr int NCOL = COUT_P / CT;  // blocks per row tile
   static constexpr int SA = CIN_P + 4;   // gathered rows [TM][SA]
-  static constexpr int SB = COUT_P + 4;  // W[k] split, float2 [CIN_P][SB]
+  static constexpr int SB = CT + 4;      // W[k] split, float2 [CIN_P][SB]
   static constexpr int STAGE = TM * SA;  // floats per stage
   // float4 chunks of W[k] each thread loads
-  static constexpr int WV = (CIN_P * COUT_P / 4 + THREADS - 1) / THREADS;
+  static constexpr int WV = (CIN_P * CT / 4 + THREADS - 1) / THREADS;
 };
 
 inline int slot_bytes(int k) { return (TM * k * 4 + 15) / 16 * 16; }
 
 int block_smem_bytes(int k, int cin_p, int cout_p) {
+  const int ct = cout_p < MAX_CT ? cout_p : MAX_CT;
   return HEADER_BYTES + slot_bytes(k) +
-         (STAGES * TM * (cin_p + 4) + 2 * cin_p * (cout_p + 4)) *
+         (STAGES * TM * (cin_p + 4) + 2 * cin_p * (ct + 4)) *
              static_cast<int>(sizeof(float));
 }
 
@@ -96,7 +110,11 @@ sparse_conv_kernel(const float* __restrict__ feat,
   float2* w2 = reinterpret_cast<float2*>(stages + STAGES * S::STAGE);
 
   const int b = blockIdx.y;
-  const int row0 = blockIdx.x * TM;
+  const int row0 = (blockIdx.x / S::NCOL) * TM;
+  // the first of the block's CT columns (0 unless Cout is split)
+  const int col0 = (blockIdx.x % S::NCOL) * S::CT;
+  // W[k]'s columns the block loads: Cout's, or its slice's
+  const int w_cols = S::WIDE ? S::CT : cout;
   const int rows = min(TM, vout - row0);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -130,8 +148,15 @@ sparse_conv_kernel(const float* __restrict__ feat,
   }
   if (!__syncthreads_or(mask != 0)) {
     // no slot of the tile hits: its rows are the bias (or zero)
-    for (int i = tid; i < rows * cout; i += THREADS)
-      out_t[i] = bias != nullptr ? bias[i % cout] : 0.f;
+    if constexpr (S::WIDE) {
+      for (int i = tid; i < rows * S::CT; i += THREADS) {
+        const int c = col0 + i % S::CT;
+        out_t[(i / S::CT) * cout + c] = bias != nullptr ? bias[c] : 0.f;
+      }
+    } else {
+      for (int i = tid; i < rows * cout; i += THREADS)
+        out_t[i] = bias != nullptr ? bias[i % cout] : 0.f;
+    }
     return;
   }
   mask = 0;
@@ -140,7 +165,7 @@ sparse_conv_kernel(const float* __restrict__ feat,
 
   // offset kk's rows into a stage (cp.async), and W[kk] into registers
   float4 w_reg[S::WV];
-  const int w_chunks = cin * cout / 4;  // cout is a multiple of 4
+  const int w_chunks = cin * w_cols / 4;  // cout is a multiple of 4
   auto load = [&](int stage, int kk) {
     gather_rows_async(stages + stage * S::STAGE, S::SA, TM, cin, a_vec,
                       feat_b, [&](int r) { return slot_s[r * k + kk]; }, tid,
@@ -150,9 +175,16 @@ sparse_conv_kernel(const float* __restrict__ feat,
     for (int v = 0; v < S::WV; ++v) {
       const int c = tid + v * THREADS;
       if (c >= w_chunks) continue;
-      w_reg[v] = w_vec ? reinterpret_cast<const float4*>(w_k)[c]
-                       : make_float4(w_k[4 * c], w_k[4 * c + 1],
-                                     w_k[4 * c + 2], w_k[4 * c + 3]);
+      if constexpr (S::WIDE) {  // row 4c / CT of the block's slice
+        const int row = 4 * c / S::CT;
+        const float* src = w_k + row * cout + col0 + (4 * c - row * S::CT);
+        w_reg[v] = w_vec ? *reinterpret_cast<const float4*>(src)
+                         : make_float4(src[0], src[1], src[2], src[3]);
+      } else {
+        w_reg[v] = w_vec ? reinterpret_cast<const float4*>(w_k)[c]
+                         : make_float4(w_k[4 * c], w_k[4 * c + 1],
+                                       w_k[4 * c + 2], w_k[4 * c + 3]);
+      }
     }
   };
   // W[kk] from the registers into shared memory, split into (hi, lo)
@@ -162,8 +194,8 @@ sparse_conv_kernel(const float* __restrict__ feat,
     for (int v = 0; v < S::WV; ++v) {
       const int c = tid + v * THREADS;
       if (c >= w_chunks) continue;
-      const int row = 4 * c / cout;
-      float2* dst = w2 + row * S::SB + (4 * c - row * cout);
+      const int row = 4 * c / w_cols;
+      float2* dst = w2 + row * S::SB + (4 * c - row * w_cols);
       const float x[4] = {w_reg[v].x, w_reg[v].y, w_reg[v].z, w_reg[v].w};
       float h[4], l[4];
 #pragma unroll
@@ -178,9 +210,9 @@ sparse_conv_kernel(const float* __restrict__ feat,
     }
   };
 
-  float acc[COUT_P / 8][4];
+  float acc[S::CT / 8][4];
 #pragma unroll
-  for (int j = 0; j < COUT_P / 8; ++j)
+  for (int j = 0; j < S::CT / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   const int g = lane >> 2;
@@ -202,9 +234,9 @@ sparse_conv_kernel(const float* __restrict__ feat,
     if (!__any_sync(0xffffffffu, hit)) continue;  // this warp's rows all miss
     const float* a_s = stages + (it % STAGES) * S::STAGE + warp * 16 * S::SA;
 
-    float part[COUT_P / 8][4];  // this offset's products, added below
+    float part[S::CT / 8][4];  // this offset's products, added below
 #pragma unroll
-    for (int j = 0; j < COUT_P / 8; ++j)
+    for (int j = 0; j < S::CT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
 #pragma unroll
@@ -215,7 +247,7 @@ sparse_conv_kernel(const float* __restrict__ feat,
       split_tf32(a_s[g * S::SA + c0 + t + 4], a_hi[2], a_lo[2]);
       split_tf32(a_s[(g + 8) * S::SA + c0 + t + 4], a_hi[3], a_lo[3]);
 #pragma unroll
-      for (int j = 0; j < COUT_P / 8; ++j) {
+      for (int j = 0; j < S::CT / 8; ++j) {
         const float2 w0 = w2[(c0 + t) * S::SB + j * 8 + g];
         const float2 w1 = w2[(c0 + t + 4) * S::SB + j * 8 + g];
         const uint32_t b_hi[2] = {__float_as_uint(w0.x), __float_as_uint(w1.x)};
@@ -224,7 +256,7 @@ sparse_conv_kernel(const float* __restrict__ feat,
       }
     }
 #pragma unroll
-    for (int j = 0; j < COUT_P / 8; ++j)
+    for (int j = 0; j < S::CT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
   }
@@ -232,8 +264,8 @@ sparse_conv_kernel(const float* __restrict__ feat,
 
   const int r0 = warp * 16 + g;
 #pragma unroll
-  for (int j = 0; j < COUT_P / 8; ++j) {
-    const int col = j * 8 + 2 * t;
+  for (int j = 0; j < S::CT / 8; ++j) {
+    const int col = col0 + j * 8 + 2 * t;
     if (col >= cout) continue;
     const float b0 = bias != nullptr ? bias[col] : 0.f;
     const float b1 = bias != nullptr ? bias[col + 1] : 0.f;
@@ -259,7 +291,7 @@ int launch(const float* feat, const int32_t* slots, const float* weight,
   const bool a_vec =
       cin % 4 == 0 && reinterpret_cast<uintptr_t>(feat) % 16 == 0;
   const bool w_vec = reinterpret_cast<uintptr_t>(weight) % 16 == 0;
-  const dim3 grid((vout + TM - 1) / TM, batch);
+  const dim3 grid((vout + TM - 1) / TM * Shape<CIN_P, COUT_P>::NCOL, batch);
   kernel<<<grid, THREADS, smem, stream>>>(feat, slots, weight, bias, out, vin,
                                           vout, k, cin, cout, slot_bytes(k),
                                           a_vec, w_vec);
@@ -278,12 +310,23 @@ int sparse_conv_smem_bytes(int k, int cin, int cout) {
 
 // feat [batch, vin, cin], slots [batch, vout, k] int32, weight
 // [k, cin, cout], bias [cout] or null, out [batch, vout, cout]; all
-// contiguous fp32 on the device. cin <= 64, cout a power of two in
-// [4, 64], k <= 64. Returns the CUDA error code of the launch.
+// contiguous fp32 on the device. cin <= 64 and cout a power of two in
+// [4, 64], or cout 128 and 32 < cin <= 128; k <= 64. Returns the CUDA
+// error code of the launch.
 int sparse_conv_launch(const float* feat, const int32_t* slots,
                        const float* weight, const float* bias, float* out,
                        int batch, int vin, int vout, int k, int cin,
                        int cout, cudaStream_t stream) {
+  if (pad_width(cout) == 128) {
+    const int cin_p = pad_width(cin);
+    if (cin_p == 64)
+      return launch<64, 128>(feat, slots, weight, bias, out, batch, vin, vout,
+                             k, cin, cout, stream);
+    if (cin_p == 128)
+      return launch<128, 128>(feat, slots, weight, bias, out, batch, vin,
+                              vout, k, cin, cout, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return dispatch_widths<8>(
       pad_width(cin), pad_width(cout), [&](auto ci, auto co) {
         return launch<decltype(ci)::value, decltype(co)::value>(

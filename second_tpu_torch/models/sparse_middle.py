@@ -1,9 +1,13 @@
 """Sparse 3D middle extractors, the SECOND middle family (twin of
 ``second_tpu/models/sparse_middle.py``): SpMiddleFHD, SpMiddleFHDPeople,
-SpMiddleFHDLite, SpMiddleFHDLiteHRZ, SpMiddleFHDHRZ and SpMiddle2K.
+SpMiddleFHDLite, SpMiddleFHDLiteHRZ, SpMiddleFHDHRZ and SpMiddle2K; and
+SpMiddleResNetFHD, the residual middle of nuScenes' voxel detectors
+(OpenPCDet's ``VoxelResBackBone8x``), which the JAX package lacks.
 
-Each scale runs submanifold convs and a closing strided conv through the
-gather-GEMM kernel K1, over rulebooks from one of two routes:
+Each scale runs submanifold convs (alone, or in pairs inside residual
+blocks, ``models.sparse_resnet.SparseBasicBlock``) and a closing strided
+conv through the gather-GEMM kernel K1, over rulebooks from one of two
+routes:
 
 * the host plan (:func:`build_host_plan`, the C++ planner of
   ``second_tpu_torch.native.sparse_plan``), shipped with the example as
@@ -35,6 +39,7 @@ The JAX package's banded plans and z-folded dense weights are TPU
 workarounds and have no counterpart here.
 """
 
+import contextlib
 import logging
 
 import numpy as np
@@ -44,8 +49,11 @@ from torch import nn
 
 from ..native import sparse_plan as native_plan
 from ..ops import sparse
+from ..ops.cuda_sparse_conv import NARROW_MAX
+from ..utils import timer
 from .layers import MaskedBatchNorm
 from .registry import get_middle_class, register_middle
+from .sparse_resnet import SparseBasicBlock
 
 
 def _t3(v):
@@ -102,7 +110,8 @@ def _scales(cls, output_shape, max_voxels):
     for group in _group_topology(cls.topology):
         subm_kernels = []
         for op in group:
-            if op[0] == "subm" and _t3(op[2]) not in subm_kernels:
+            # a residual block's two subm convs share the scale's rulebook
+            if op[0] in ("subm", "block") and _t3(op[2]) not in subm_kernels:
                 subm_kernels.append(_t3(op[2]))
         entry = {
             "shape": shape,
@@ -235,7 +244,9 @@ def warn_overflow(scale_idx, total, cap):
         scale_idx, total, cap, total - cap)
 
 
-# topology ops: ("subm", out_ch, kernel) | ("down", out_ch, kernel, stride, pad)
+# topology ops: ("subm", out_ch, kernel) | ("down", out_ch, kernel, stride,
+# pad) | ("block", out_ch, kernel): a SparseBasicBlock (subm conv, BN,
+# ReLU, subm conv, BN, + identity, ReLU) at out_ch in and out
 FHD_TOPOLOGY = (
     ("subm", 16, 3), ("subm", 16, 3),
     ("down", 32, 3, 2, 1),
@@ -301,6 +312,22 @@ MIDDLE_2K_TOPOLOGY = (
 )
 
 
+# OpenPCDet's VoxelResBackBone8x (det3d's SpMiddleResNetFHD): conv_input,
+# then per scale a strided conv (conv2-conv4) and two residual blocks
+# (conv1-conv4), then conv_out
+RESNET_FHD_TOPOLOGY = (
+    ("subm", 16, 3),
+    ("block", 16, 3), ("block", 16, 3),
+    ("down", 32, 3, 2, 1),
+    ("block", 32, 3), ("block", 32, 3),
+    ("down", 64, 3, 2, 1),
+    ("block", 64, 3), ("block", 64, 3),
+    ("down", 128, 3, 2, (0, 1, 1)),
+    ("block", 128, 3), ("block", 128, 3),
+    ("down", 128, (3, 1, 1), (2, 1, 1), 0),
+)
+
+
 class SparseMiddleBase(nn.Module):
     """Shared engine; subclasses set ``topology``, ``dense_from_scale``
     and ``capacity_factors``.
@@ -310,7 +337,9 @@ class SparseMiddleBase(nn.Module):
     op, or without a norm (``use_norm=False``) a bias ``subm{li}_b`` /
     ``down{li}_b`` [Cout] in place of ``bn{li}``; they stay f32 under a
     ``compute_dtype`` (a torch dtype, or None for f32), which casts
-    them at use.
+    them at use. A "block" op is the module ``block{li}``
+    (``sparse_resnet.SparseBasicBlock``: ``conv1_w``, ``bn1``,
+    ``conv2_w``, ``bn2``); such a middle runs in f32 with its norms only.
     """
 
     topology = FHD_TOPOLOGY
@@ -324,9 +353,28 @@ class SparseMiddleBase(nn.Module):
         self.output_shape = tuple(int(v) for v in output_shape)
         self.compute_dtype = compute_dtype
         self.use_norm = use_norm
+        if any(op[0] == "block" for op in self.topology):
+            if compute_dtype is not None:
+                raise ValueError(
+                    f"{type(self).__name__} runs in float32 only: K1-bf16 "
+                    "and K2 at 128 channels wait in ROADMAP.md queue 6")
+            if not use_norm:
+                raise ValueError(f"{type(self).__name__}'s residual blocks "
+                                 "have no bias-only form (use_norm=False)")
+        # the first op above K1's narrow widths: from it on, the ops run
+        # under "net.middle.wide"
+        self.wide_from = next((li for li, op in enumerate(self.topology)
+                               if op[1] > NARROW_MAX), None)
         cin = num_input_features
         for li, op in enumerate(self.topology):
             cout, kernel = op[1], _t3(op[2])
+            if op[0] == "block":
+                if cin != cout:
+                    raise ValueError(f"op {li}: a block keeps its width, "
+                                     f"not {cin} -> {cout}")
+                self.add_module(f"block{li}",
+                                SparseBasicBlock(cin, cout, kernel))
+                continue
             k = int(np.prod(kernel))
             self.register_parameter(
                 f"{op[0]}{li}_w", nn.Parameter(torch.empty(k, cin, cout)))
@@ -363,7 +411,8 @@ class SparseMiddleBase(nn.Module):
         (:func:`build_device_plan`, the voxels in any order), and a dict
         ``intermediates`` receives the stages' counts [B, S, 2] under
         "sparse_active_counts" (the JAX package sows them as
-        ``active_scale{i}``)."""
+        ``active_scale{i}``). The ops from ``wide_from`` to the end of
+        the sparse scales run inside the span "net.middle.wide"."""
         nz, ny, nx = self.output_shape[1:4]
         shape = (nz + 1, ny, nx)
         if self.compute_dtype is not None:
@@ -379,38 +428,47 @@ class SparseMiddleBase(nn.Module):
                 intermediates["sparse_active_counts"] = counts
         dense, mask = None, None
         li = 0
-        for scale_idx, group in enumerate(_group_topology(self.topology)):
-            if (self.dense_from_scale is not None
-                    and scale_idx >= self.dense_from_scale):
-                if dense is None:
-                    dense = sparse.to_dense(grid)
-                    ones = grid.features.new_ones(grid.lin.shape + (1,))
-                    mask = sparse.to_dense(
-                        grid._replace(features=ones))[:, 0] > 0
-                dense, mask = self._dense_group(group, dense, mask, li)
-                li += len(group)
-                continue
-            out_grid, down_slots = None, None
-            if group[-1][0] == "down":
-                _, _, kernel, stride, pad = group[-1]
-                out_shape = _down_out_shape(
-                    grid.shape, _t3(kernel), _t3(stride), _t3(pad))
-                out_grid = sparse.from_sorted_voxel_coords(
-                    None, plan[f"plan_coords{scale_idx}"], out_shape)
-                down_slots = plan[f"plan_conv{scale_idx}"]
-            for op in group:
-                w, b = self._weight(op, li), self._bias(op, li)
-                if op[0] == "subm":
-                    grid = sparse.subm_conv(
-                        grid, plan[f"plan_subm{scale_idx}"], w, b)
-                else:
-                    grid = sparse.sparse_conv_apply(
-                        grid, out_grid, down_slots, w, b)
-                feats = self._norm_relu(grid.features, li, grid.valid, -1)
-                feats = torch.where(grid.valid[..., None], feats,
-                                    torch.zeros_like(feats))
-                grid = grid._replace(features=feats)
-                li += 1
+        # the ops from wide_from to the last sparse one
+        with contextlib.ExitStack() as wide:
+            for scale_idx, group in enumerate(_group_topology(self.topology)):
+                if (self.dense_from_scale is not None
+                        and scale_idx >= self.dense_from_scale):
+                    if dense is None:
+                        dense = sparse.to_dense(grid)
+                        ones = grid.features.new_ones(grid.lin.shape + (1,))
+                        mask = sparse.to_dense(
+                            grid._replace(features=ones))[:, 0] > 0
+                    dense, mask = self._dense_group(group, dense, mask, li)
+                    li += len(group)
+                    continue
+                out_grid, down_slots = None, None
+                if group[-1][0] == "down":
+                    _, _, kernel, stride, pad = group[-1]
+                    out_shape = _down_out_shape(
+                        grid.shape, _t3(kernel), _t3(stride), _t3(pad))
+                    out_grid = sparse.from_sorted_voxel_coords(
+                        None, plan[f"plan_coords{scale_idx}"], out_shape)
+                    down_slots = plan[f"plan_conv{scale_idx}"]
+                for op in group:
+                    if li == self.wide_from:
+                        wide.enter_context(timer.span("net.middle.wide"))
+                    if op[0] == "block":
+                        grid = getattr(self, f"block{li}")(
+                            grid, plan[f"plan_subm{scale_idx}"])
+                        li += 1
+                        continue
+                    w, b = self._weight(op, li), self._bias(op, li)
+                    if op[0] == "subm":
+                        grid = sparse.subm_conv(
+                            grid, plan[f"plan_subm{scale_idx}"], w, b)
+                    else:
+                        grid = sparse.sparse_conv_apply(
+                            grid, out_grid, down_slots, w, b)
+                    feats = self._norm_relu(grid.features, li, grid.valid, -1)
+                    feats = torch.where(grid.valid[..., None], feats,
+                                        torch.zeros_like(feats))
+                    grid = grid._replace(features=feats)
+                    li += 1
         if dense is None:
             dense = sparse.to_dense(grid)
         b, c, d, h, w_ = dense.shape
@@ -492,9 +550,29 @@ class SpMiddle2K(SparseMiddleBase):
     capacity_factors = (3.25, 1.1, 1.1, 0.7, 0.9)
 
 
+@register_middle
+class SpMiddleResNetFHD(SparseMiddleBase):
+    """The residual middle of nuScenes' voxel detectors (OpenPCDet's
+    ``VoxelResBackBone8x``, det3d's ``SpMiddleResNetFHD``) on a
+    [41, 1024, 1024] grid: 4 -> 16 -> 32 -> 64 -> 128 channels over 4
+    downsample stages to [2, 128, 128], two residual blocks a scale,
+    every conv sparse (no dense tail). The published blocks' convs carry
+    a bias ahead of their norm; at inference it folds into the norm's
+    shift, so these stay bias-free.
+
+    ``capacity_factors``: the active sets of 10-sweep nuScenes frames
+    (``benchmark/gen/nusc_scenes.py``) at 60 000 voxels, measured by the
+    plain reference's rulebooks (PERF.md section 4), with headroom.
+    """
+
+    topology = RESNET_FHD_TOPOLOGY
+    capacity_factors = (1.8, 0.465, 0.34, 0.78)
+
+
 # the sparse middle family: rulebooks from the host planner (loaders) or
 # the device (requests, and the loaders' device route)
 SPARSE_MIDDLE_NAMES = frozenset({
     "SpMiddleFHD", "SpMiddleFHDPeople", "SpMiddleFHDLite",
     "SpMiddleFHDLiteHRZ", "SpMiddleFHDHRZ", "SpMiddle2K",
+    "SpMiddleResNetFHD",
 })

@@ -31,6 +31,20 @@ launches = 0
 MAX_OFFSETS = 64
 # shared memory a block can opt in to on Hopper (232 448 bytes)
 MAX_SMEM_BYTES = 227 * 1024
+# K1's widest instantiations, Cout 128 from Cin in (32, 128] (the residual
+# nuScenes middle's 128-channel stage); K1-bf16 and K2 stop at 64
+WIDE_COUT = 128
+NARROW_MAX = 64
+
+
+def refuse_wide(name, cin, cout):
+    """Raise for Cin or Cout above 64 in a kernel without the 128-wide
+    instantiations (K1-bf16, K2), on any device."""
+    if cin > NARROW_MAX or cout > NARROW_MAX:
+        raise ValueError(
+            f"{name}: Cin {cin} / Cout {cout}: only fp32 K1 runs widths "
+            f"above {NARROW_MAX}; the bf16 forward and the weight gradient "
+            "at 128 channels wait in ROADMAP.md queue 6")
 
 _lib = None
 
@@ -120,11 +134,15 @@ def gather_gemm(feat, slots, weight, bias=None):
     feat and weight bf16, no bias -> bf16 (f32 sums rounded once).
 
     CPU tensors take :func:`gather_gemm_plain`; CUDA tensors launch the
-    kernel, K1 or K1-bf16 (Cin <= 64, Cout a power of two in [4, 64],
-    K <= 64), or raise. Mixed dtypes raise.
+    kernel, K1 (Cin <= 64 and Cout a power of two in [4, 64], or Cout
+    128 and Cin in (32, 128]; K <= 64) or K1-bf16 (Cin, Cout <= 64), or
+    raise. Mixed dtypes raise, and so does bf16 above 64 channels on
+    any device.
     """
     global launches
     dtype = _compute_dtype(feat, weight, bias)
+    if dtype == torch.bfloat16:
+        refuse_wide("gather_gemm (bf16)", weight.shape[-2], weight.shape[-1])
     if feat.device.type == "cpu":
         return gather_gemm_plain(feat, slots, weight, bias)
     if feat.device.type != "cuda":
@@ -142,9 +160,13 @@ def gather_gemm(feat, slots, weight, bias=None):
         raise ValueError(
             f"gather_gemm: shapes disagree: feat {tuple(feat.shape)}, "
             f"slots {tuple(slots.shape)}, weight {tuple(weight.shape)}")
-    if not (1 <= cin <= 64 and 4 <= cout <= 64 and cout & (cout - 1) == 0):
+    narrow = (1 <= cin <= NARROW_MAX and 4 <= cout <= NARROW_MAX
+              and cout & (cout - 1) == 0)
+    wide = cout == WIDE_COUT and NARROW_MAX // 2 < cin <= WIDE_COUT
+    if not (narrow or wide):
         raise ValueError(f"gather_gemm: kernel takes Cin <= 64 and Cout a "
-                         f"power of two in [4, 64], got {cin}, {cout}")
+                         f"power of two in [4, 64], or Cout 128 and Cin in "
+                         f"(32, 128], got {cin}, {cout}")
     if k > MAX_OFFSETS:
         raise ValueError(f"gather_gemm: kernel takes K <= {MAX_OFFSETS} "
                          f"offsets, got {k}")

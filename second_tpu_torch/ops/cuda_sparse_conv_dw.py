@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from .cuda_sparse_conv import MAX_SMEM_BYTES, gather_rows
+from .cuda_sparse_conv import MAX_SMEM_BYTES, gather_rows, refuse_wide
 
 KERNEL = "sparse_conv_dw"
 launches = 0
@@ -80,8 +80,10 @@ def sparse_conv_dw(feat, slots, dout):
 
     CPU tensors take :func:`sparse_conv_dw_plain`; CUDA tensors launch
     the kernel (Cout a power of two in [4, 64], Cin <= 64) or raise.
+    Cin or Cout above 64 raises on any device (no 128-wide K2 yet).
     """
     global launches
+    refuse_wide("sparse_conv_dw", feat.shape[-1], dout.shape[-1])
     if feat.device.type == "cpu":
         return sparse_conv_dw_plain(feat, slots, dout)
     if feat.device.type != "cuda":

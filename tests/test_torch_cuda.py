@@ -91,21 +91,29 @@ def _rulebook(g, b, vin, vout, k, hit_share):
 
 
 # every (Cin, Cout) that K1 meets in car.fhd: the forwards of the 10
-# sparse convs (4->16 first) and the input gradients (Cout -> Cin)
+# sparse convs (4->16 first) and the input gradients (Cout -> Cin), k 27
 CAR_FHD_K1_WIDTHS = [(4, 16), (16, 16), (16, 32), (32, 16), (32, 32),
                      (32, 64), (64, 32), (64, 64)]
+# K1's 128-wide instantiations, whose columns two blocks split, as the
+# residual nuScenes middle meets them: conv4's strided 64 -> 128 (k 27),
+# its blocks' 128 -> 128 subm convs (k 27) and conv_out's (3, 1, 1)
+# 128 -> 128 (k 3); Cin 48 and 96 pad to 64 and 128 with zeros
+WIDE_K1_CASES = [(64, 128, 27), (64, 128, 3), (128, 128, 27),
+                 (128, 128, 3), (48, 128, 27), (96, 128, 3)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_bias", [True, False])
-@pytest.mark.parametrize("cin,cout", CAR_FHD_K1_WIDTHS)
-def test_k1_cuda_car_fhd_widths(cuda_device, cin, cout, use_bias):
+@pytest.mark.parametrize(
+    "cin,cout,k", [(ci, co, 27) for ci, co in CAR_FHD_K1_WIDTHS]
+    + WIDE_K1_CASES)
+def test_k1_cuda_car_fhd_widths(cuda_device, cin, cout, k, use_bias):
     """Each width against the plain version, with the second half of the
     rows missing at every offset (capacity padding): those rows are
     exactly the bias, or zero. Vout is no multiple of the 64-row tile,
-    and two calls are bitwise equal."""
-    g = torch.Generator().manual_seed(cin * 100 + cout)
-    b, k, vin, vout = 2, 27, 5000, 6001
+    each call is one launch, and two calls are bitwise equal."""
+    g = torch.Generator().manual_seed(cin * 100 + cout + 10000 * (k != 27))
+    b, vin, vout = 2, 5000, 6001
     feat = torch.randn(b, vin, cin, generator=g)
     slots = _rulebook(g, b, vin, vout, k, 0.4)
     slots[:, vout // 2:] = vin
@@ -114,9 +122,11 @@ def test_k1_cuda_car_fhd_widths(cuda_device, cin, cout, use_bias):
     ref = cuda_sparse_conv.gather_gemm_plain(feat, slots, w, bias)
     dev = [t.to(cuda_device) if t is not None else None
            for t in (feat, slots, w, bias)]
+    before = cuda_sparse_conv.launches
     out = cuda_sparse_conv.gather_gemm(*dev)
     out2 = cuda_sparse_conv.gather_gemm(*dev)
     torch.cuda.synchronize()
+    assert cuda_sparse_conv.launches == before + 2
     assert torch.equal(out, out2)
     out = out.cpu()
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
@@ -125,6 +135,17 @@ def test_k1_cuda_car_fhd_widths(cuda_device, cin, cout, use_bias):
         assert torch.equal(pad, bias.expand_as(pad))
     else:
         assert torch.equal(pad, torch.zeros_like(pad))
+
+
+@pytest.mark.cuda
+def test_k1_cuda_wide_refuses_other_widths(cuda_device):
+    """Cout 128 only from Cin in (32, 128]; no Cout between 64 and 128."""
+    for cin, cout in ((16, 128), (128, 64), (64, 96), (160, 128)):
+        feat = torch.zeros(1, 8, cin, device=cuda_device)
+        slots = torch.zeros(1, 8, 27, dtype=torch.int32, device=cuda_device)
+        w = torch.zeros(27, cin, cout, device=cuda_device)
+        with pytest.raises(ValueError, match="Cout 128"):
+            cuda_sparse_conv.gather_gemm(feat, slots, w)
 
 
 def _bf16_slots(g, pattern, b, vin, k):
@@ -649,3 +670,41 @@ def test_bf16_device_route_inference_captures_in_cuda_graph(cuda_device):
     before = cuda_sparse_conv_bf16.launches
     _device_route_captures(cuda_device, mixed_precision=True)
     assert cuda_sparse_conv_bf16.launches > before
+
+
+@pytest.mark.cuda
+def test_res8x_request_runs_every_conv_on_k1(cuda_device, monkeypatch):
+    """The nuScenes residual network serves a 10-sweep frame on the voxel
+    route: each of its 21 sparse convs (conv_input, 8 blocks' 16, the 4
+    strided ones, the 128-channel ones among them) is one K1 launch, no
+    conv3d runs and no plain gather; no stage drops a site; the
+    detections carry labels of the 10 classes."""
+    from benchmark.gen import nusc_scenes
+    from second_tpu_torch.core.inference import InferenceContext
+
+    ctx = InferenceContext()
+    ctx.build("configs/nuscenes/all.res8x.config", cuda_device)
+    ctx.init_random(0)
+    points = nusc_scenes.make_frame(np.random.default_rng([23, 1, 0]),
+                                    34720, 5)[0]
+    plain = []
+    monkeypatch.setattr(cuda_sparse_conv, "gather_gemm_plain",
+                        lambda *a, **k: plain.append(1))
+    conv3d = []
+    inner3d = torch.nn.functional.conv3d
+    monkeypatch.setattr(torch.nn.functional, "conv3d",
+                        lambda *a, **k: conv3d.append(1) or inner3d(*a, **k))
+    before = cuda_sparse_conv.launches
+    ex = ctx.get_inference_input_dict({"token": "t"}, points)
+    assert ex["voxels"].shape == (1, 60000, 10, 4)
+    _, dets, counts = ctx._run(ex)
+    torch.cuda.synchronize()
+    assert cuda_sparse_conv.launches - before == 21
+    assert plain == [] and conv3d == []
+    counts = counts.cpu().numpy()
+    assert counts.shape == (1, 4, 2)
+    assert np.all(counts[..., 0] <= counts[..., 1])
+    assert counts[0, 0, 0] > 60000
+    out = ctx.inference(ex)[0]
+    assert 0 < len(out["scores"]) <= 83
+    assert np.all((out["label_preds"] >= 0) & (out["label_preds"] < 10))

@@ -1,16 +1,18 @@
 """The port's stage spans and counts (``second_tpu_torch/utils/timer.py``)
 on the CPU, through ``InferenceContext`` on the tests' small car.fhd
 (host voxels sorted by linear id, rulebooks built on the device),
-PointPillars and nuScenes multi-head configs, and through ``evaluate``.
+PointPillars, nuScenes multi-head and nuScenes residual sparse configs,
+and through ``evaluate``.
 
 Off, nothing is kept and no profiler range opens; on, every request
 records each of its stages once, in program order and without nesting
-(but the multi-head network's ``net.heads``, inside ``net.rpn``), all
-under its own id, with the bytes it uploads, the sparse rows of the
-device's stage counts and, on the flat pillar path, the points shipped
-and the buffer's rows; under ``torch.profiler`` the stages are
-``user_annotation`` ranges on the caller's thread. Collection adds no
-host sync.
+(but the multi-head network's ``net.heads``, inside ``net.rpn``, and the
+residual middle's ``net.middle.wide``, inside ``net.middle``), all under
+its own id, with the bytes it uploads, the sparse rows of the device's
+stage counts (active, capacity and the overflow beyond it) and, on the
+flat pillar path, the points shipped and the buffer's rows; under
+``torch.profiler`` the stages are ``user_annotation`` ranges on the
+caller's thread. Collection adds no host sync.
 """
 
 import json
@@ -31,7 +33,9 @@ from second_tpu_torch.train.__main__ import evaluate, train
 from second_tpu_torch.utils import timer
 
 from benchmark.tests.small_mhead import small_frame, small_mhead_config
+from benchmark.tests.small_res8x import small_res8x_frame
 from test_torch_pointpillars import SMALL_PP_CONFIG, small_pp_points
+from test_torch_res8x import build_small_res8x
 from test_torch_slice import SMALL_FHD_CONFIG, small_fhd_points
 
 HOST = {"fhd": ["prep.voxelize", "prep.anchor_mask", "prep.plan",
@@ -113,6 +117,7 @@ def test_each_request_records_its_stages_once(contexts, model):
             assert counts["sparse_rows_active"] == active[..., 0].sum()
             assert counts["sparse_rows_capacity"] == active[..., 1].sum()
             assert counts["sparse_rows_active"] > 0
+            assert counts["sparse_rows_overflow"] == 0
         else:
             assert set(counts) == {"upload_bytes", "points_shipped",
                                    "points_capacity", "host_voxelized"}
@@ -285,10 +290,98 @@ def test_points_counted_on_flat_pillar_requests_only(contexts, mhead,
             batch["points"].shape[1])
 
 
-def test_collection_adds_no_host_sync(contexts, mhead, monkeypatch):
+@pytest.fixture(scope="module")
+def res8x(tmp_path_factory):
+    """The nuScenes residual sparse network on a small patch at its
+    published widths (the benchmark's weights) and a frame of (x, y, z,
+    time lag) points."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    _, ctx, _ = build_small_res8x(tmp_path_factory.mktemp("res8x"))
+    yield ctx, small_res8x_frame(np.random.default_rng([0, 1]))
+    torch.set_num_threads(threads)
+
+
+def _res8x_request(res8x):
+    ctx, points = res8x
+    batch = ctx.get_inference_input_dict({"token": "t"}, points)
+    return batch, ctx.inference(batch)
+
+
+def test_wide_span_nests_in_middle_once_a_request(res8x):
+    """The residual middle's 128-channel stage runs under
+    ``net.middle.wide``, inside ``net.middle``; the other stages are
+    car.fhd's, and the stage counts come with the overflow (none)."""
+    ctx, _ = res8x
+    timer.collect(True)
+    batches = [_res8x_request(res8x)[0] for _ in range(2)]
+    snap = timer.snapshot()
+    for batch in batches:
+        rid = batch[timer.REQUEST_KEY]
+        mine = sorted((s for s in snap["spans"] if s.request == rid),
+                      key=lambda s: s.start_ns)
+        assert [s.name for s in mine if s.name != "net.middle.wide"] == (
+            HOST["fhd"] + DEVICE["fhd"])
+        (wide,) = [s for s in mine if s.name == "net.middle.wide"]
+        (middle,) = [s for s in mine if s.name == "net.middle"]
+        assert middle.start_ns <= wide.start_ns <= wide.end_ns <= (
+            middle.end_ns)
+        assert wide.thread == middle.thread
+        counts = snap["counts"][rid]
+        was = timer.collect(False)
+        active = ctx._run(batch)[2].numpy()
+        timer.collect(was)
+        assert counts["sparse_rows_active"] == active[..., 0].sum() > 0
+        assert counts["sparse_rows_capacity"] == active[..., 1].sum()
+        assert counts["sparse_rows_overflow"] == 0
+
+
+@pytest.mark.parametrize("model", ["fhd", "pp", "mhead"])
+def test_no_wide_span_on_narrow_networks(contexts, mhead, model):
+    if model == "mhead":
+        ctx, points = mhead
+        info = {"token": "t"}
+    else:
+        ctx, points, info = contexts[model], POINTS[model](), {}
+    timer.collect(True)
+    ctx.inference(ctx.get_inference_input_dict(info, points))
+    names = {s.name for s in timer.snapshot()["spans"]}
+    assert "net.rpn" in names and "net.middle.wide" not in names
+
+
+def test_overflow_counts_the_sites_beyond_capacity(res8x, monkeypatch):
+    """With capacities cut below the frame's active sets, the request
+    counts each stage's sites beyond its capacity, summed, as the
+    device's stage counts give them."""
+    ctx, _ = res8x
+    monkeypatch.setattr(type(ctx.parts["net"].middle_feature_extractor),
+                        "capacity_factors", (0.5, 0.5, 0.5, 0.5))
+    timer.collect(True)
+    batch, _ = _res8x_request(res8x)
+    counts = timer.snapshot()["counts"][batch[timer.REQUEST_KEY]]
+    timer.collect(False)
+    active = ctx._run(batch)[2].numpy()
+    over = np.maximum(active[..., 0] - active[..., 1], 0).sum()
+    assert over > 0
+    assert counts["sparse_rows_overflow"] == over
+
+
+def test_wide_stage_off_records_nothing_and_opens_no_range(res8x,
+                                                           monkeypatch):
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: opened.append(name))
+    batch, _ = _res8x_request(res8x)
+    assert timer.REQUEST_KEY not in batch
+    assert timer.snapshot() == {"spans": [], "counts": {}}
+    assert opened == []
+
+
+def test_collection_adds_no_host_sync(contexts, mhead, res8x, monkeypatch):
     """The same calls that read a tensor back to the host (``item``,
     ``tolist``, ``cpu``, ``numpy``, truth values) with collection on as
-    with it off, on the multi-head and PointPillars requests."""
+    with it off, on the multi-head, PointPillars and residual sparse
+    requests."""
     calls = Counter()
     for name in ("item", "tolist", "cpu", "numpy", "__bool__",
                  "__int__", "__float__"):
@@ -301,7 +394,8 @@ def test_collection_adds_no_host_sync(contexts, mhead, monkeypatch):
         monkeypatch.setattr(torch.Tensor, name, wrapped)
     ctx, points = mhead
     runs = [(ctx, points, {"token": "t"}),
-            (contexts["pp"], POINTS["pp"](), {})]
+            (contexts["pp"], POINTS["pp"](), {}),
+            (res8x[0], res8x[1], {"token": "t"})]
     seen = {}
     for on in (False, True):
         timer.collect(on)
