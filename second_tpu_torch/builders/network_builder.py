@@ -189,9 +189,13 @@ def build_network(config, device, compute_dtype=None):
 
 
 def make_anchor_cache(target_assigner, feature_map_size, grid_size):
-    """Anchors generated once per run (host numpy, as the JAX package)."""
+    """Anchors generated once per run (host numpy, as the JAX package).
+    Every example of the run ships ``anchors`` itself, not a copy, so
+    it is read-only: a write in place raises instead of changing every
+    later example."""
     ret = target_assigner.generate_anchors(feature_map_size)
     anchors = ret["anchors"].reshape([-1, target_assigner.box_ndim])
+    anchors.setflags(write=False)
     return {
         "anchors": anchors,
         "anchors_bv": box_ops.rbbox2d_to_near_bbox(anchors[:, [0, 1, 3, 4, 6]]),

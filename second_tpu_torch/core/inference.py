@@ -33,6 +33,12 @@ and not at all where it sets none. The nuScenes multi-head network
 runs this path too (its ``rpn_preds`` applies both heads), without a
 mask.
 
+The anchors are a constant of the config. Every request's host batch
+holds the anchor cache itself (``builders.network_builder
+.make_anchor_cache``, read-only; a batch of one is a view of it), and
+the device path reads a copy that ``build`` uploaded once in its place.
+A batch whose anchors are any other array uploads them.
+
 ``get_inference_input_dict`` takes a KITTI info (image index and
 calibration) or a nuScenes one (its sample ``token``, no image or
 calibration) beside the points.
@@ -41,7 +47,9 @@ Stages (``utils.timer``; off unless collection is on or a profiler
 records): ``get_inference_input_dict`` runs "prep.voxelize",
 "prep.anchor_mask" (in ``prep_pointcloud``), "prep.plan" (sparse
 middles on host voxels: the linear-id sort) and "prep.pack";
-``inference`` runs "upload" (counting "upload_bytes"), "net.encode",
+``inference`` runs "upload" (counting "upload_bytes", the bytes copied
+up, and "anchors_resident", 1 where the device read its own anchors and
+0 where the batch's were uploaded), "net.encode",
 "net.middle" (a middle's stage above 64 channels inside it, as
 "net.middle.wide"), "net.rpn" (the multi-head network's heads inside
 it, as "net.heads") and "net.predict", and counts a sparse middle's
@@ -88,13 +96,32 @@ def example_convert(example):
     return out
 
 
+def to_tensor(array, device):
+    """A host array as a tensor on ``device``. A read-only array (the
+    anchor cache, and a batch's view of it) is copied: ``torch.from_numpy``
+    would hand out its memory as writable, and warns."""
+    if array.flags.writeable:
+        return torch.from_numpy(array).to(device)
+    return torch.tensor(array, device=device)
+
+
 def example_to_device(example, device):
     """The network's inputs (and the training targets, where the batch
     has them) of a host batch as tensors on ``device``."""
     with timer.span("upload"):
         host = example_convert(example)
         timer.count("upload_bytes", sum(v.nbytes for v in host.values()))
-        return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        return {k: to_tensor(v, device) for k, v in host.items()}
+
+
+def _is_batch_of(batch, array):
+    """Whether the host array ``batch`` is ``array[None]``, a batch of one
+    in ``array``'s own memory: told from the layouts and the data
+    pointer, not from the values."""
+    return (batch.shape == (1,) + array.shape and batch.dtype == array.dtype
+            and batch.strides[1:] == array.strides
+            and batch.__array_interface__["data"][0]
+            == array.__array_interface__["data"][0])
 
 
 class InferenceContext:
@@ -104,6 +131,9 @@ class InferenceContext:
         self.route = None
         self.prep_func = None
         self.device = None
+        # the anchor cache's read-only array and its copy on the device
+        self.anchors_host = None
+        self.anchors_device = None
 
     def build(self, config_path_or_config, device, device_voxelize=False):
         """device_voxelize: ship the request's in-range points
@@ -123,6 +153,11 @@ class InferenceContext:
                                 device_voxelize)
         self.prep_func = build_prep_func(reader, self.parts, training=False,
                                          route=self.route)
+        # a constant of the config: uploaded once, read by every request
+        # whose batch holds the cache itself
+        self.anchors_host = self.parts["anchor_cache"]["anchors"]
+        self.anchors_device = torch.tensor(self.anchors_host,
+                                           device=self.device)
 
     def get_inference_input_dict(self, info, points):
         if self.parts is None:
@@ -191,7 +226,16 @@ class InferenceContext:
         """(preds, detections, a sparse middle's stage counts [B, S, 2]
         on the device, else None)."""
         with timer.request(example.get(timer.REQUEST_KEY)):
+            anchors = example.get("anchors")
+            resident = anchors is not None and _is_batch_of(
+                anchors, self.anchors_host)
+            if resident:
+                example = {k: v for k, v in example.items()
+                           if k != "anchors"}
             ex = example_to_device(example, self.device)
+            timer.count("anchors_resident", int(resident))
+            if resident:
+                ex["anchors"] = self.anchors_device[None]
             return infer(self.route, self.parts["net"], self.parts["spec"],
                          ex)
 

@@ -373,7 +373,9 @@ def prep_pointcloud(input_dict,
                 anchors[:, [0, 1, 3, 4, 6]])
             matched_thresholds = ret["matched_thresholds"]
             unmatched_thresholds = ret["unmatched_thresholds"]
-        example["anchors"] = anchors.astype(out_dtype)
+        # the cache itself where its dtype is out_dtype: a run's requests
+        # share one read-only array (the device keeps a resident copy)
+        example["anchors"] = anchors.astype(out_dtype, copy=False)
         anchors_mask = None
         if anchor_area_threshold >= 0:
             # occupancy-gated anchors via BEV summed-area table
@@ -440,9 +442,18 @@ def prep_pointcloud(input_dict,
         timer.stage(None)
 
 
+def _stack(elems):
+    # a batch of one is a view of its example's array: no copy
+    if len(elems) == 1:
+        return np.asarray(elems[0])[None]
+    return np.stack(elems, axis=0)
+
+
 def merge_second_batch(batch_list):
     """Stack fixed-shape examples into a batch (the static-shape twin of
-    reference merge_second_batch_multigpu, preprocess.py:57-88)."""
+    reference merge_second_batch_multigpu, preprocess.py:57-88). A batch
+    of one example holds views of its arrays, which share their memory
+    (and a read-only array's flag)."""
     keys = batch_list[0].keys()
     ret = {}
     for key in keys:
@@ -450,10 +461,8 @@ def merge_second_batch(batch_list):
         if key in ("metadata", "metrics", "gt_names"):
             ret[key] = elems
         elif key == "calib":
-            ret[key] = {
-                k1: np.stack([e[k1] for e in elems], axis=0)
-                for k1 in elems[0]
-            }
+            ret[key] = {k1: _stack([e[k1] for e in elems])
+                        for k1 in elems[0]}
         else:
-            ret[key] = np.stack(elems, axis=0)
+            ret[key] = _stack(elems)
     return ret

@@ -82,7 +82,7 @@ from ..builders import dataset_builder
 from ..builders.network_builder import build_network
 from ..builders.route import make_route
 from ..configs import load_pipeline_config
-from ..core.inference import example_convert
+from ..core.inference import example_convert, to_tensor
 from ..data.loader import DataLoader, shard_batches
 from ..data.prefetch import DevicePrefetcher
 from ..models.voxelnet import init_weights
@@ -114,8 +114,8 @@ def _upload(host, device):
     memory with non-blocking copies, so the copy of the next batch
     overlaps the running step."""
     if device.type != "cuda":
-        return {k: torch.from_numpy(v) for k, v in host.items()}
-    return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
+        return {k: to_tensor(v, device) for k, v in host.items()}
+    return {k: to_tensor(v, "cpu").pin_memory().to(device, non_blocking=True)
             for k, v in host.items()}
 
 
@@ -347,7 +347,7 @@ def train(config_path,
         host = example_convert(example)
         anchors = host.pop("anchors")
         if anchors_dev is None:
-            anchors_dev = torch.from_numpy(anchors).to(device)
+            anchors_dev = to_tensor(anchors, device)
         if "importance" in host and np.all(host["importance"] == 1.0):
             host.pop("importance")  # compute_loss defaults to ones
         dev = _upload(host, device)

@@ -8,11 +8,12 @@ Off, nothing is kept and no profiler range opens; on, every request
 records each of its stages once, in program order and without nesting
 (but the multi-head network's ``net.heads``, inside ``net.rpn``, and the
 residual middle's ``net.middle.wide``, inside ``net.middle``), all under
-its own id, with the bytes it uploads, the sparse rows of the device's
-stage counts (active, capacity and the overflow beyond it) and, on the
-flat pillar path, the points shipped and the buffer's rows; under
-``torch.profiler`` the stages are ``user_annotation`` ranges on the
-caller's thread. Collection adds no host sync.
+its own id, with the bytes it uploads (not the anchors: the device
+reads its resident copy, "anchors_resident" 1), the sparse rows of the
+device's stage counts (active, capacity and the overflow beyond it)
+and, on the flat pillar path, the points shipped and the buffer's rows;
+under ``torch.profiler`` the stages are ``user_annotation`` ranges on
+the caller's thread. Collection adds no host sync.
 """
 
 import json
@@ -107,7 +108,9 @@ def test_each_request_records_its_stages_once(contexts, model):
         # anchor mask reads them
         assert counts["host_voxelized"] == 1
         host = example_convert(batch)
-        assert counts["upload_bytes"] == sum(v.nbytes for v in host.values())
+        assert counts["anchors_resident"] == 1
+        assert counts["upload_bytes"] == sum(
+            v.nbytes for k, v in host.items() if k != "anchors")
         if model == "fhd":
             assert not any(k.startswith("plan_") for k in host)
             # the device's stage counts, read again with collection off
@@ -119,8 +122,9 @@ def test_each_request_records_its_stages_once(contexts, model):
             assert counts["sparse_rows_active"] > 0
             assert counts["sparse_rows_overflow"] == 0
         else:
-            assert set(counts) == {"upload_bytes", "points_shipped",
-                                   "points_capacity", "host_voxelized"}
+            assert set(counts) == {"upload_bytes", "anchors_resident",
+                                   "points_shipped", "points_capacity",
+                                   "host_voxelized"}
             assert counts["points_shipped"] == batch["points_count"][0, 0]
             assert counts["points_capacity"] == ctx.route.points_capacity
     timer.reset()
